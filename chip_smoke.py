@@ -8,8 +8,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
   2. build    build the CUDA kernel libraries from dsk_tpu_torch/csrc,
               one nvcc per source, all started together.
   3. kernels  each kernel against its plain PyTorch version on the card,
-              bit for bit, at the test shapes and the real batch shape;
-              time both at the real shape.
+              bit for bit, at the test shapes and the real shape; time
+              both at the real shape.  The codes-input extraction kernel
+              (extract_canonical_planes) on 25 cases; the fused wire
+              kernel (extract_wire_planes) on both wires x k in {1, 15,
+              16, 17, 31, 32, 33, 63, 64, 65, 127} x n_passes 1 and 3
+              with every pass_id, rows with dead tails, dead rows, exactly
+              E invalid bases and invalid bases on both sides of its tile
+              boundary, L = 300, a short group whose later buffer columns
+              must stay untouched, and whole 32 x 2048 x 1024 groups at
+              k=31 (both wires) and k=63, timed per group.
   4. golden   dsk counts of the tests/data fixtures through
               dsk_tpu_torch.engine.run.execute on CUDA: k27.histo (single
               gz and the c1-c4 list), readN.histo, short.parse_results,
@@ -22,6 +30,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
               from a 1-Mbase genome, numpy seed 0; 32-batch flush groups,
               table_cap 1,572,864) through the engine's count_stream;
               histogram and sorted table against a numpy count made here.
+              The stream must launch the fused kernel once per flush group
+              and the codes-input kernel never.  Then the same batches as
+              a 3-pass count (count_stream(pass_id=p), p = 0..2): the
+              merged pass tables and histograms against the same count.
   6. sortstage  the bitonic-stage probe's kernel (kmer/sortstage.py)
               against its plain version, bit for bit: 1 and 2 tiles of
               full-range words, a ties case, keys >= 2^31, torch.uint32
@@ -31,10 +43,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
 
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; launches made to compare a kernel with its
-plain version are not counted.  Bounds in the kernels' JSON line: the
-larger of the bytes each input is read and each output written once over
-3.35 TB/s and the operations over 67 T/s (the H100's non-tensor 32-bit
-peak); both from NVIDIA's data sheet for the 700 W part.
+plain version are not counted.  The codes-input extraction kernel is off
+the main path (phases 4 and 5 require 0 launches of it); its launches in
+the JSON line are those of its own entry point, timed in phase 3.  Bounds
+in the kernels' JSON line: the larger of the bytes each input is read and
+each output written once over 3.35 TB/s and the operations over 67 T/s
+(the H100's non-tensor 32-bit peak); both from NVIDIA's data sheet for
+the 700 W part.
 
 Then it prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}.  It imports only dsk_tpu_torch: nothing of
@@ -60,6 +75,11 @@ K_REAL, ROWS, ROW_LEN, N_BATCHES = 31, 2048, 1024, 64
 G_REAL, CAP_REAL, GENOME = 32, 1_572_864, 1 << 20
 DEVICE = "cuda"
 SS_TILES = 256  # the probe's size: 256 tiles of 65,536 elements
+WIRE_KS = (1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127)
+WIRE_PASSES = ((1, 0), (3, 0), (3, 1), (3, 2))
+WIRE_E = 16      # exc wire slots (io/packed.py EXC_E)
+WTILE = 1024     # windows per block of the fused kernel (csrc/extract.cu)
+GUARD = 0x12345678  # buffer columns past a group: must survive the kernel
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 
@@ -169,6 +189,9 @@ def phase_kernels():
         if err or not torch.equal(v1, v2):
             raise AssertionError(f"kernel != plain at k={k}, shape {b.shape}")
     times = {}
+    # its own entry point's path (the main path no longer runs it):
+    # launches counted from here
+    ck.extract_canonical_planes.launches = 0
     for k in (31, 63):
         x = torch.from_numpy(rng.integers(0, 4, size=(ROWS, ROW_LEN))
                              .astype(np.uint8)).cuda()
@@ -176,10 +199,137 @@ def phase_kernels():
             cuda_ms(lambda: ck.extract_canonical_planes(x, k), 50),
             cuda_ms(lambda: ck.extract_canonical_planes_torch(x, k), 5),
         )
+    launches = ck.extract_canonical_planes.launches
     log(f"[3 kernels] extract_canonical_planes == plain on {len(cases)} "
         f"cases (max |diff| {max_err}); at ({ROWS}, {ROW_LEN}): "
         + ", ".join(f"k={k} kernel {a:.4f} ms / plain {b:.4f} ms"
-                    for k, (a, b) in times.items()))
+                    for k, (a, b) in times.items())
+        + f"; launches on its own entry path {launches}")
+    return max_err, times, launches
+
+
+def wire_rows(rng, B: int, L: int, dense: bool) -> np.ndarray:
+    """(B, L) codes cycling through the fused kernel's row kinds: clean,
+    a dead tail (live < L), all invalid (live 0), exactly WIRE_E invalid
+    bases, and invalid bases on both sides of the kernel's tile boundary
+    (window WTILE).  `dense` adds 30% N's (the bitmap wire's input)."""
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    for r in range(B):
+        kind = r % 5
+        if kind == 1:
+            codes[r, rng.integers(1, L):] = 4
+        elif kind == 2:
+            codes[r] = 4
+        elif kind == 3:
+            codes[r, rng.choice(L - 1, size=WIRE_E, replace=False)] = 4
+        elif kind == 4:
+            at = WTILE if L > WTILE + 8 else L // 2
+            codes[r, [at - 5, at - 1, at + 2, at + 6]] = 4
+    if dense:
+        codes[rng.random((B, L)) < 0.3] = 4
+    return codes
+
+
+def wire_group(batches, wire: str):
+    """Pack (B, L) code batches to one flush group on the card, as the
+    engine's feeder ships it: (words int32, meta int16 or int32)."""
+    import torch
+
+    from dsk_tpu_torch.io.packed import pack_codes, pack_codes_exc
+
+    packed = [pack_codes_exc(b, WIRE_E) if wire == "exc" else pack_codes(b)
+              for b in batches]
+    words = np.stack([w for w, _ in packed]).view(np.int32)
+    meta = np.stack([m for _, m in packed])
+    meta = meta.view(np.int16 if wire == "exc" else np.int32)
+    return torch.from_numpy(words).cuda(), torch.from_numpy(meta).cuda()
+
+
+def wire_cases(rng):
+    """(name, codes batches, wire, k, n_passes, pass_id, guard columns)."""
+    cases = []
+    for wire in ("exc", "bitmap"):
+        dense = wire == "bitmap"
+        for k in WIRE_KS:
+            rows = [wire_rows(rng, 10, 300, dense) for _ in range(3)]
+            cases += [(f"{wire} k={k} L=300 pass {p}/{n}", rows, wire, k, n,
+                       p, 7) for n, p in WIRE_PASSES]
+        for k in (1, 31, 127):
+            rows = [wire_rows(rng, 5, WTILE + 276, dense)]
+            cases.append((f"{wire} k={k} across the tile", rows, wire, k, 3,
+                          1, 7))
+        L, k, B = WTILE + 276, 31, 5
+        m = B * (L - k + 1)
+        rows = [wire_rows(rng, B, L, dense) for _ in range(2)]
+        cases.append((f"{wire} short group 2 of 4", rows, wire, k, 1, 0,
+                      2 * m))
+    return cases
+
+
+def real_group(rng, wire: str):
+    """A whole flush group at the real shape: G_REAL batches of ROWS x
+    ROW_LEN random bases, 0.1% N's (the bitmap wire's group 30%)."""
+    rate = 0.3 if wire == "bitmap" else 0.001
+    out = []
+    for _ in range(G_REAL):
+        b = rng.integers(0, 4, size=(ROWS, ROW_LEN)).astype(np.uint8)
+        b[rng.random((ROWS, ROW_LEN)) < rate] = 4
+        out.append(b)
+    return out
+
+
+def phase_wire_kernel():
+    """The fused kernel against its plain version on every case, bit for
+    bit, with the buffer's later columns untouched; timed per group at the
+    real shape."""
+    import torch
+
+    from dsk_tpu_torch.kmer import cuda_kernels as ck
+    from dsk_tpu_torch.kmer.codec import words_per_kmer
+
+    rng = np.random.default_rng(3)
+    cases = wire_cases(rng)
+    for k in (31, 63):
+        cases.append((f"exc k={k} real group", real_group(rng, "exc"), "exc",
+                      k, 1, 0, 7))
+    cases.append(("bitmap k=31 real group", real_group(rng, "bitmap"),
+                  "bitmap", 31, 1, 0, 7))
+    max_err = 0
+    times = {}
+    for name, rows, wire, k, n_passes, pass_id, extra in cases:
+        words, meta = wire_group(rows, wire)
+        n, B, L = len(rows), rows[0].shape[0], rows[0].shape[1]
+        cols = n * B * (L - k + 1)
+        got, want = (torch.full((words_per_kmer(k), cols + extra), GUARD,
+                                dtype=torch.int64, device="cuda")
+                     for _ in range(2))
+        before = ck.extract_wire_planes.launches
+        ck.extract_wire_planes(words, meta, wire, k, L, got, n_passes,
+                               pass_id)
+        ck.extract_wire_planes_torch(words, meta, wire, k, L, want, n_passes,
+                                     pass_id)
+        torch.cuda.synchronize()
+        if ck.extract_wire_planes.launches != before + 1:
+            raise AssertionError(f"wire kernel {name}: not one launch")
+        err = int((got - want).abs().max().item())
+        max_err = max(max_err, err)
+        if err or not bool((got[:, cols:] == GUARD).all().item()):
+            raise AssertionError(f"wire kernel != plain: {name}")
+        if name.startswith("exc") and name.endswith("real group"):
+            times[k] = (
+                cuda_ms(lambda: ck.extract_wire_planes(
+                    words, meta, wire, k, L, got), 20),
+                cuda_ms(lambda: ck.extract_wire_planes_torch(
+                    words, meta, wire, k, L, want), 2),
+            )
+        del got, want, words, meta
+        torch.cuda.empty_cache()
+    log(f"[3 kernels] extract_wire_planes == plain on {len(cases)} cases, "
+        f"later buffer columns untouched (max |diff| {max_err}); per "
+        f"{G_REAL}-batch group of ({ROWS}, {ROW_LEN}), exc wire: "
+        + ", ".join(f"k={k} kernel {a:.4f} ms ({a / G_REAL:.5f} ms a batch, "
+                    f"bound {wire_extract_bound(k)[0]:.4f} ms) / plain "
+                    f"{b:.4f} ms" for k, (a, b) in times.items()))
     return max_err, times
 
 
@@ -308,6 +458,7 @@ def numpy_reference(batches):
 
 def phase_real():
     from dsk_tpu_torch.dist.engine import DistCountEngine
+    from dsk_tpu_torch.engine.counter import merge_pass_results
     from dsk_tpu_torch.kmer import cuda_kernels as ck
 
     batches = make_batches()
@@ -315,13 +466,18 @@ def phase_real():
                           row_len=ROW_LEN, buf_batches=G_REAL,
                           table_cap=CAP_REAL)
     eng.count_stream(iter(batches[:G_REAL]))  # warm-up: first-call costs
+    ck.extract_wire_planes.launches = 0
     ck.extract_canonical_planes.launches = 0
     t0 = time.perf_counter()
     res = eng.count_stream(iter(batches))  # ends in a host read: drained
     wall = time.perf_counter() - t0
-    launches = ck.extract_canonical_planes.launches
-    if launches <= 0:
-        raise AssertionError("the main path launched no extraction kernel")
+    launches = ck.extract_wire_planes.launches
+    groups = -(-N_BATCHES // G_REAL)
+    if launches != groups or ck.extract_canonical_planes.launches:
+        raise AssertionError(
+            f"the main path launched the fused kernel {launches} times "
+            f"(want {groups}, one a flush group) and the codes-input "
+            f"kernel {ck.extract_canonical_planes.launches} times (want 0)")
     n_bases = res.info["n_bases"]
     uniq, counts, n_valid = numpy_reference(batches)
     got = (res.kmers[:, 0].astype(np.uint64) << np.uint64(32)) | res.kmers[
@@ -339,7 +495,32 @@ def phase_real():
     rate = n_bases / wall / 1e6
     log(f"[5 real] {n_bases} bases, {uniq.shape[0]} distinct, table and "
         f"histogram == numpy; {rate:.2f} Mbases/s ({wall:.3f} s, "
-        f"t_sub {res.info['t_sub']}); extract launches {launches}")
+        f"t_sub {res.info['t_sub']}); fused extract launches {launches}, "
+        f"codes-input 0")
+
+    # the same batches as a 3-pass count: the fused pass filter at width
+    del eng, res
+    eng3 = DistCountEngine(K_REAL, device=DEVICE, batch_rows=ROWS,
+                           row_len=ROW_LEN, buf_batches=G_REAL,
+                           table_cap=CAP_REAL, n_passes=3)
+    ck.extract_wire_planes.launches = 0
+    t0 = time.perf_counter()
+    parts = [eng3.count_stream(iter(batches), pass_id=p) for p in range(3)]
+    wall3 = time.perf_counter() - t0
+    launches3 = ck.extract_wire_planes.launches
+    merged = merge_pass_results(parts)
+    got3 = (merged.kmers[:, 0].astype(np.uint64) << np.uint64(32)) | (
+        merged.kmers[:, 1].astype(np.uint64))
+    if not (np.array_equal(got3, uniq)
+            and np.array_equal(merged.counts, counts)
+            and np.array_equal(merged.histogram, hist)):
+        raise AssertionError("3-pass count differs from the numpy count")
+    if launches3 != 3 * groups:
+        raise AssertionError(f"3-pass count: {launches3} fused launches")
+    log(f"[5 real] 3-pass count of the same batches == numpy (pass tables "
+        f"{', '.join(str(p.kmers.shape[0]) for p in parts)} distinct; "
+        f"{3 * n_bases / wall3 / 1e6:.2f} Mbases/s streamed); fused "
+        f"extract launches {launches3}")
     return launches, rate
 
 
@@ -352,6 +533,20 @@ def extract_bound():
     windows = ROWS * nw
     nbytes = ROWS * ROW_LEN + windows * (8 * W + 1)
     ops = windows * (7 * K_REAL + 4 * W)
+    return _bound(nbytes, ops)
+
+
+def wire_extract_bound(k: int):
+    """(ms, what) for one flush group at the real shape, exc wire: the
+    code words and exc meta read once, the int64 planes written once;
+    ~20W + 6 ceil(k/32) + 10 integer operations a window (per word two
+    funnel shifts, a pair reversal, the xor, compare, select and address;
+    the validity test 32 bits at a time)."""
+    W, nw = (2 * k + 31) // 32, ROW_LEN - k + 1
+    rows, windows = G_REAL * ROWS, G_REAL * ROWS * nw
+    nw_p = -(-ROW_LEN // 32) * 2
+    nbytes = rows * (4 * nw_p + 2 * (1 + WIRE_E)) + windows * 8 * W
+    ops = windows * (20 * W + 6 * (-(-k // 32)) + 10)
     return _bound(nbytes, ops)
 
 
@@ -417,12 +612,13 @@ def phase_sortstage():
     # the probe's path: launches counted from here
     ss.bitonic_stages.launches = 0
     ck.extract_canonical_planes.launches = 0
+    ck.extract_wire_planes.launches = 0
     ms = cuda_ms(lambda: ss.bitonic_stages(*big), 50)
     launches = ss.bitonic_stages.launches
     if launches <= 0:
         raise AssertionError("the probe's path launched no sortstage kernel")
-    if ck.extract_canonical_planes.launches:
-        raise AssertionError("the probe's path launched the extract kernel")
+    if ck.extract_canonical_planes.launches or ck.extract_wire_planes.launches:
+        raise AssertionError("the probe's path launched an extract kernel")
     plain_ms = cuda_ms(lambda: ss.bitonic_stages_torch(*big), 3)
     key = (ss.widen_words(big[0]) << 32) | ss.widen_words(big[1])
     pay = big[2].reshape(-1)
@@ -458,17 +654,22 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernels"
-        max_err, times = phase_kernels()
+        max_err, times, codes_launches = phase_kernels()
+        wire_err, wire_times = phase_wire_kernel()
         from dsk_tpu_torch.kmer import cuda_kernels as ck
 
         phase = "golden"
         with tempfile.TemporaryDirectory(prefix="dsk_torch_smoke_") as tmp:
+            ck.extract_wire_planes.launches = 0
             ck.extract_canonical_planes.launches = 0
             done = phase_golden(tmp, has_h5py)
-            golden_launches = ck.extract_canonical_planes.launches
-        if golden_launches <= 0:
-            raise AssertionError("golden runs launched no extraction kernel")
-        log(f"[4 golden] byte-identical: {', '.join(done)}; extract "
+            golden_launches = ck.extract_wire_planes.launches
+            golden_codes = ck.extract_canonical_planes.launches
+        if golden_launches <= 0 or golden_codes:
+            raise AssertionError(
+                f"golden runs: {golden_launches} fused launches, "
+                f"{golden_codes} codes-input launches")
+        log(f"[4 golden] byte-identical: {', '.join(done)}; fused extract "
             f"launches {golden_launches}"
             + ("" if has_h5py else "; h5py missing on this machine: the "
                "HDF5 store was not exercised here (the CPU tests pin it)"))
@@ -481,14 +682,28 @@ def main() -> int:
               file=sys.stderr)
         return 1
     kernel_ms, plain_ms = times[K_REAL]
+    wire_ms, wire_plain_ms = wire_times[K_REAL]
     ex_bound, ex_by = extract_bound()
+    wi_bound, wi_by = wire_extract_bound(K_REAL)
     ss_bound, ss_by = sortstage_bound(stage["n"], stage["nstages"])
     print(json.dumps({"kernels": [{
-        "name": "extract_canonical_planes",
+        "name": "extract_wire_planes",
         "route": "cuda",
         "source": "dsk_tpu_torch/csrc/extract.cu",
         "replaces": "dsk_tpu/kmer/pallas_kernels.py:30",
         "launches": launches,
+        "max_abs_err": wire_err,
+        "ms": wire_ms,
+        "plain_ms": wire_plain_ms,
+        "bound_ms": wi_bound,
+        "bound_by": wi_by,
+        "library_ms": None,
+    }, {
+        "name": "extract_canonical_planes",
+        "route": "cuda",
+        "source": "dsk_tpu_torch/csrc/extract.cu",
+        "replaces": "dsk_tpu/kmer/pallas_kernels.py:30",
+        "launches": codes_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -508,8 +723,10 @@ def main() -> int:
         "bound_by": ss_by,
         "library_ms": None,
     }]}))
-    print(f"{card} | real-size stream {rate:.2f} Mbases/s, extract "
-          f"{kernel_ms:.4f} ms vs plain {plain_ms:.4f} ms at "
+    print(f"{card} | real-size stream {rate:.2f} Mbases/s; fused extract "
+          f"{wire_ms:.4f} ms vs plain {wire_plain_ms:.4f} ms vs bound "
+          f"{wi_bound:.4f} ms per {G_REAL}-batch group, codes-input extract "
+          f"{kernel_ms:.4f} ms vs plain {plain_ms:.4f} ms a batch, at "
           f"({ROWS}, {ROW_LEN}) k={K_REAL}; sortstage {stage['ms']:.4f} ms "
           f"vs plain {stage['plain_ms']:.4f} ms at {SS_TILES} tiles")
     print(json.dumps({"ok": True, "device": {

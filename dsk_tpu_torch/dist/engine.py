@@ -8,12 +8,11 @@ spill, no per-bank key word, flush_mode="sort") is the main path of a
     the prefetch thread (io/packed.py's packers), staged in
     pinned memory and copied host->device on a side stream, one flush
     group (G batches) at a time;
-  * group step (`_step`, the reference's step_group_shard -> fill_shard
-    -> extract_flat -> maybe_pass_filter): per batch, unpack the wire,
-    extract canonical planes with the CUDA kernel
-    (kmer/cuda_kernels.py), sentinel-mask windows of other passes, and
-    append them to a preallocated (W, G*m) buffer.  The reference's
-    lax.scan is this Python loop;
+  * group step (`_step`, the reference's step_group_shard, whose
+    lax.scan unpacks, extracts, pass-filters and appends each batch): one
+    call of kmer/cuda_kernels.py `extract_wire_planes` for the whole
+    group, which on CUDA is one fused kernel launch from the packed wire
+    straight into a preallocated (W, G*m) buffer;
   * weightless flush (`_flush`): sort the buffer's key planes, compact
     unit-weight runs, and fold them into the persistent (W, table_cap)
     table with a weighted group-by-key over 2 * table_cap rows;
@@ -45,13 +44,10 @@ from dsk_tpu_torch.io.packed import (
     pack_codes,
     pack_codes_exc,
     packed_shapes,
-    unpack_codes,
-    unpack_codes_exc,
 )
-from dsk_tpu_torch.kmer.cuda_kernels import extract_canonical_planes
+from dsk_tpu_torch.kmer.cuda_kernels import extract_wire_planes
 from dsk_tpu_torch.kmer.device import (
     compact_heads_unit,
-    pass_hash_planes,
     sum_by_key_planes_capped,
 )
 from dsk_tpu_torch.kmer.layout import (
@@ -182,27 +178,6 @@ class DistCountEngine:
             )
         return self._buf
 
-    def extract_flat(self, codes: torch.Tensor):
-        """(rows, L) codes -> ((W, m) planes, (m,) bool valid)."""
-        planes, valid = extract_canonical_planes(codes, self.k)
-        return planes.reshape(self.W, self.plan.m), valid.reshape(self.plan.m)
-
-    def maybe_pass_filter(self, flat, valid, pass_id: int):
-        """Keep this pass's k-mers (pass_hash % n_passes == pass_id); the
-        rest become all-sentinel rows, which never occupy the table."""
-        if self.n_passes <= 1:
-            return flat
-        keep = valid & (pass_hash_planes(flat) % self.n_passes == pass_id)
-        return torch.where(keep, flat, SENTINEL)
-
-    def fill_shard(self, codes, slot: int, pass_id: int) -> None:
-        """Extract + pass-filter one batch into buffer slot `slot`."""
-        m = self.plan.m
-        flat, valid = self.extract_flat(codes)
-        self._buffer()[:, slot * m : (slot + 1) * m] = self.maybe_pass_filter(
-            flat, valid, pass_id
-        )
-
     def _flush(self, n_rows: int, tab_p, tab_c, tover):
         """Weightless flush of the buffer's first n_rows: liveness is the
         weight (dead and filtered windows are all-sentinel), so the big
@@ -220,16 +195,24 @@ class DistCountEngine:
         tover = tover + over + (wrapped << WRAP_SHIFT)
         return uniq, counts.to(torch.int32), tover
 
+    def fill_group(self, words, meta, pass_id: int) -> int:
+        """Extract + pass-filter a group of packed batches into the
+        buffer's first rows (in place); returns the rows filled.  Windows
+        of other passes become all-sentinel rows, which never occupy the
+        table."""
+        extract_wire_planes(
+            words, meta, self.wire, self.k, self.row_len, self._buffer(),
+            self.n_passes, pass_id,
+        )
+        return words.shape[0] * self.plan.m
+
     def _step(self, words, meta, tab_p, tab_c, tover, pass_id: int):
         """One flush group: up to G packed batches -> buffer -> flush.
         A short final group flushes only its own rows: the reference's
         all-dead padding batches would add sentinel rows only, which sort
         to the tail and never reach the table."""
-        unpack = unpack_codes_exc if self.wire == "exc" else unpack_codes
-        n = words.shape[0]
-        for g in range(n):
-            self.fill_shard(unpack(words[g], meta[g], self.row_len), g, pass_id)
-        return self._flush(n * self.plan.m, tab_p, tab_c, tover)
+        n_rows = self.fill_group(words, meta, pass_id)
+        return self._flush(n_rows, tab_p, tab_c, tover)
 
     def hist_shard(self, tab_c) -> torch.Tensor:
         """Abundance histogram of the table (index 0 unused), int64."""

@@ -9,16 +9,22 @@ groups; table_cap 1,572,864) it measures:
   * host: the exc wire packer (pack_codes_exc) on one thread;
   * device only: both flush groups with the wire already on the card, each
     piece of dsk_tpu_torch.dist.engine's _step and _flush timed with CUDA
-    events (unpack, extraction kernel, pass filter + append, flush sort,
-    compaction, table fold), --reps times;
+    events, --reps times, in turns for two group steps:
+      - "fused", the engine's: one fused-kernel launch a group
+        (fill_group -> kmer/cuda_kernels.py extract_wire_planes);
+      - "before", the composition it replaced, kept here as the yardstick:
+        per batch the torch wire unpack (io/packed.py), the codes-input
+        extraction kernel (extract_canonical_planes) and the append;
+    then the flush (sort, compaction, table fold), the same for both;
+  * the device memory a group step takes above the buffer, both ways;
   * the stream end to end (count_stream, warm) and the device's busy
-    share of it: device-only time over stream wall;
+    share of it: fused device-only time over stream wall;
   * the peak device memory of one flush at k=31, 63 and 127 (8-batch
     groups), against the planner's model (engine/planner.py
     device_bytes).
 
 Prints one line per measurement, and with --out writes them all as JSON.
-Needs CUDA; builds the extraction kernel at first use.
+Needs CUDA; builds the extraction kernels at first use.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ from dsk_tpu_torch.io.packed import (  # noqa: E402
     pack_codes_exc,
     unpack_codes_exc,
 )
+from dsk_tpu_torch.kmer.cuda_kernels import (  # noqa: E402
+    extract_canonical_planes,
+)
 from dsk_tpu_torch.kmer.device import (  # noqa: E402
     compact_heads_unit,
     sum_by_key_planes_capped,
@@ -52,8 +61,9 @@ from dsk_tpu_torch.kmer.layout import planes_to_numpy, sort_planes  # noqa: E402
 
 K, ROWS, ROW_LEN, N_BATCHES = 31, 2048, 1024, 64
 G, CAP, GENOME = 32, 1_572_864, 1 << 20
-PIECES = ("unpack", "extract", "append", "flush_sort", "flush_compact",
-          "flush_fold")
+STEP_PIECES = {"fused": ("group_step",),
+               "before": ("unpack", "extract", "append")}
+FLUSH_PIECES = ("flush_sort", "flush_compact", "flush_fold")
 
 
 def card_line() -> str:
@@ -90,10 +100,32 @@ def host_pack(batches):
     return groups, dt
 
 
-def device_only(eng: DistCountEngine, wire) -> tuple[dict, float, tuple]:
+def step_before(eng: DistCountEngine, words, meta, timed) -> int:
+    """The group step the fused kernel replaced: per batch, unpack the
+    wire with torch ops, extract with the codes-input kernel, append
+    (one pass: no filter).  Returns the rows filled."""
+    m = eng.plan.m
+    for g in range(words.shape[0]):
+        codes = timed("unpack", lambda: unpack_codes_exc(
+            words[g], meta[g], eng.row_len))
+        planes, _ = timed("extract",
+                          lambda: extract_canonical_planes(codes, eng.k))
+
+        def append():
+            eng._buffer()[:, g * m:(g + 1) * m] = planes.reshape(eng.W, m)
+        timed("append", append)
+    return words.shape[0] * m
+
+
+def group_step(eng, mode, words, meta, timed) -> int:
+    if mode == "fused":
+        return timed("group_step", lambda: eng.fill_group(words, meta, 0))
+    return step_before(eng, words, meta, timed)
+
+
+def device_only(eng: DistCountEngine, wire, mode: str):
     """One pass over the staged groups, each piece between CUDA events.
     Returns (ms per piece, wall ms, final (tab_p, tab_c, tover))."""
-    m = eng.plan.m
     tab_p, tab_c, tover = eng._init_state()
     marks = []  # (piece, start event, end event)
 
@@ -109,19 +141,10 @@ def device_only(eng: DistCountEngine, wire) -> tuple[dict, float, tuple]:
     torch.cuda.synchronize()
     w0 = time.perf_counter()
     for words, meta in wire:
-        n = words.shape[0]
-        for g in range(n):
-            codes = timed("unpack", lambda: unpack_codes_exc(
-                words[g], meta[g], eng.row_len))
-            flat, valid = timed("extract", lambda: eng.extract_flat(codes))
-
-            def append():
-                eng._buffer()[:, g * m:(g + 1) * m] = eng.maybe_pass_filter(
-                    flat, valid, 0)
-            timed("append", append)
+        n_rows = group_step(eng, mode, words, meta, timed)
         cap = eng.plan.table_cap
         skeys, _ = timed("flush_sort",
-                         lambda: sort_planes(eng._buffer()[:, :n * m]))
+                         lambda: sort_planes(eng._buffer()[:, :n_rows]))
         buniq, bcounts, bn_uniq, n_lost = timed(
             "flush_compact", lambda: compact_heads_unit(skeys, cap))
 
@@ -135,21 +158,34 @@ def device_only(eng: DistCountEngine, wire) -> tuple[dict, float, tuple]:
         tab_p, tab_c = uniq, counts.to(torch.int32)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - w0) * 1e3
-    ms = {p: 0.0 for p in PIECES}
+    ms = {p: 0.0 for p in STEP_PIECES[mode] + FLUSH_PIECES}
     for piece, a, b in marks:
         ms[piece] += a.elapsed_time(b)
     return ms, wall, (tab_p, tab_c, tover)
 
 
-def flush_peak(k: int, batches) -> dict:
+def step_peak(eng: DistCountEngine, words, meta, mode: str) -> int:
+    """Device bytes one group step allocates above what it started with
+    (the buffer already allocated)."""
+    eng._buffer()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    group_step(eng, mode, words, meta, lambda piece, fn: fn())
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def flush_peak(k: int, group) -> dict:
     """Peak device bytes of one flush of 8 batches at k, against the
     planner's model of the same table and buffer."""
     eng = DistCountEngine(k, device="cuda", batch_rows=ROWS, row_len=ROW_LEN,
                           buf_batches=8, table_cap=CAP)
     tab_p, tab_c, tover = eng._init_state()
-    for g, b in enumerate(batches[:8]):
-        eng.fill_shard(torch.from_numpy(b.codes).cuda(), g, 0)
-    n_rows = 8 * eng.plan.m
+    words, meta = group
+    n_rows = eng.fill_group(torch.from_numpy(words[:8].view(np.int32)).cuda(),
+                            torch.from_numpy(meta[:8].view(np.int16)).cuda(),
+                            0)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -203,19 +239,35 @@ def main() -> int:
         for w, mt in groups
     ]
     rec["device_only"] = []
+    states = {}
     for rep in range(args.reps + 1):  # rep 0 pays first-call costs
-        ms, wall, state = device_only(eng, wire)
-        if rep == 0:
-            continue
-        row = {"rep": rep, "wall_ms": wall, "mbases_s": n_bases / wall / 1e3,
-               **{f"{p}_ms": ms[p] for p in PIECES}}
-        rec["device_only"].append(row)
-        print(f"device-only rep {rep}: {wall:.1f} ms "
-              f"({n_bases / wall / 1e3:.1f} Mbases/s); "
-              + ", ".join(f"{p} {ms[p]:.2f} ms" for p in PIECES), flush=True)
-    del wire
+        for mode in (("fused", "before") if rep % 2 else ("before", "fused")):
+            ms, wall, states[mode] = device_only(eng, wire, mode)
+            if rep == 0:
+                continue
+            row = {"rep": rep, "mode": mode, "wall_ms": wall,
+                   "mbases_s": n_bases / wall / 1e3,
+                   "step_ms": sum(ms[p] for p in STEP_PIECES[mode]),
+                   **{f"{p}_ms": v for p, v in ms.items()}}
+            rec["device_only"].append(row)
+            print(f"device-only rep {rep} {mode}: {wall:.2f} ms "
+                  f"({n_bases / wall / 1e3:.1f} Mbases/s); group step "
+                  f"{row['step_ms']:.3f} ms; "
+                  + ", ".join(f"{p} {v:.3f} ms" for p, v in ms.items()),
+                  flush=True)
+    state = states["fused"]
+    for a, b in zip(state, states["before"]):
+        if not torch.equal(a, b):
+            raise AssertionError("fused and before group steps disagree")
     if int(state[2].item()):
         raise AssertionError("device-only pass overflowed the table")
+    rec["step_peak_bytes"] = {
+        mode: step_peak(eng, *wire[0], mode) for mode in ("fused", "before")}
+    print("group step device memory above the buffer: "
+          + ", ".join(f"{mode} {v / 2**20:.1f} MiB"
+                      for mode, v in rec["step_peak_bytes"].items()),
+          flush=True)
+    del wire
 
     eng.count_stream(iter(batches[:G]))  # warm-up
     rec["stream"] = []
@@ -229,7 +281,8 @@ def main() -> int:
                 and np.array_equal(res.kmers,
                                    planes_to_numpy(want_p[:, :n_live]).T)):
             raise AssertionError("stream table differs from device-only")
-        dev_ms = float(np.mean([r["wall_ms"] for r in rec["device_only"]]))
+        dev_ms = float(np.mean([r["wall_ms"] for r in rec["device_only"]
+                                if r["mode"] == "fused"]))
         row = {"rep": rep, "wall_s": wall, "mbases_s": n_bases / wall / 1e6,
                "busy_share": dev_ms / 1e3 / wall, "t_sub": res.info["t_sub"]}
         rec["stream"].append(row)
@@ -241,7 +294,7 @@ def main() -> int:
 
     rec["flush_memory"] = []
     for k in (31, 63, 127):
-        row = flush_peak(k, batches)
+        row = flush_peak(k, groups[0])
         rec["flush_memory"].append(row)
         print(f"flush memory k={k} (W={row['W']}): {row['flush_rows']} rows, "
               f"peak {row['peak_bytes'] / 2**30:.3f} GiB; measured "
