@@ -181,11 +181,34 @@ Phases, one line each (any failure exits non-zero and prints no result):
               must be left empty; (b) a one-rank NCCL process group
               through execute with -spill on on the k27 fixture
               (-storage-type none): .histo == k27.histo.
+  12. buckets  key-space buckets of the flush (flush_buckets > 1) and
+              -max-disk as one budget for all ranks: (a) phase 5's stream
+              at S=8 (capb 196,608) with bucketize_at "flush" and
+              "route", in turns with S=1 (S=1, flush, route, route,
+              flush, S=1): every table against numpy's count, checked
+              slot by slot (each bucket's live rows first, each of its
+              bucket by the top 3 bits of its hash, ascending) and as the
+              sink gathers it (bucket-major); 2 fused launches a stream,
+              no codes-input launch; the flush's pieces (the rows each
+              bucket takes, sort, compaction, fold, relayout) from the
+              engine's own flush_log (CUDA events); the peak device bytes
+              a buffer row of an 8-batch flush of each, against the
+              planner's charge; (b) 9(a)'s 4 simulated ranks on phase 5's
+              stream, hash route, S=8: every rank's table against numpy's
+              share, bucket-major; (c) execute -flush-buckets 8
+              -storage-type none on the k27 fixture: .histo == k27.histo;
+              (d) 8(b)'s error-rich stream written as one FASTA, the whole
+              of it on rank 0 of 4 simulated ranks (the others an empty
+              bank), count(max_disk_mb=600): rank 0 spills more than a
+              quarter of the 450 MB spill budget and less than all of it,
+              in one pass (a SpillDiskOverflow fails the phase); every
+              rank's partitions against numpy's.
 
 Each phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; launches made to compare a kernel with its
 plain version are not counted.  The codes-input extraction kernel runs
-on no main path (phases 4, 5, 7, 8, 9, 10 and 11 require 0 launches of it);
+on no main path (phases 4, 5, 7, 8, 9, 10, 11 and 12 require 0 launches
+of it);
 its entry in the JSON line carries its launches in 10(b)'s path runs
 (0, the path it left), the launches that time it in phase 3 under
 "entry_path_launches", and its times and bound at the real batch shape,
@@ -1283,11 +1306,12 @@ def flush_split(eng, staged):
     return ms
 
 
-def flush_peak_bytes(per_bank: bool, staged) -> dict:
+def flush_peak_bytes(per_bank: bool, staged, **kw) -> dict:
     """Peak device bytes of one flush of 8 batches (CAP_REAL table) over
     its buffer rows, with the buffer's own words, the measure that
     scripts/torch_profile_stream.py takes for the planner's
-    flush_row_bytes; beside the planner's charge."""
+    flush_row_bytes; beside the planner's charge.  kw: more engine
+    arguments (phase 12's key-space buckets)."""
     import torch
 
     from dsk_tpu_torch.dist.engine import DistCountEngine
@@ -1295,7 +1319,7 @@ def flush_peak_bytes(per_bank: bool, staged) -> dict:
 
     eng = DistCountEngine(K_REAL, device=DEVICE, batch_rows=ROWS,
                           row_len=ROW_LEN, buf_batches=8, table_cap=CAP_REAL,
-                          per_bank=per_bank)
+                          per_bank=per_bank, **kw)
     tab_p, tab_c, tover = eng._init_state()
     words, meta, bids = staged[0]
     n_rows = eng.fill_group(words[:8], meta[:8], 0,
@@ -1755,13 +1779,14 @@ def _loopback():
     return mod
 
 
-def route_sim(batches, cap: int):
+def route_sim(batches, cap: int, **kw):
     """9(a): the batches dealt round-robin to N_SIM simulated ranks on the
     card, each counting its share through its own routed engine's
     count_stream (G_SIM-batch groups, bitmap wire, table_cap `cap`): the
     fused kernel fills a group, `_route_step` dedups, routes through the
-    loopback's collectives and folds.  Returns per rank (result, route
-    log) and the wall time."""
+    loopback's collectives and folds.  kw: more engine arguments (phase
+    12's key-space buckets).  Returns per rank (result, route log) and
+    the wall time."""
     from dsk_tpu_torch.dist.engine import DistCountEngine, _resolve_device
 
     loop = _loopback().Loopback(N_SIM, _resolve_device(DEVICE))
@@ -1769,7 +1794,7 @@ def route_sim(batches, cap: int):
     def rank(ranks):
         eng = DistCountEngine(K_REAL, device=DEVICE, ranks=ranks,
                               batch_rows=ROWS, row_len=ROW_LEN,
-                              buf_batches=G_SIM, table_cap=cap)
+                              buf_batches=G_SIM, table_cap=cap, **kw)
         res = eng.count_stream(iter(batches[ranks.rank::N_SIM]))
         return res, eng.route_log
 
@@ -1779,12 +1804,14 @@ def route_sim(batches, cap: int):
 
 
 def check_rank_tables(results, uniq, counts, hist_want, what: str,
-                      parts: int = 0):
+                      parts: int = 0, buckets: int = 1):
     """Each rank's table against the numpy count restricted to
     kmer_hash % n == r (k <= 32: two words a k-mer), and its histogram
     (summed over the ranks by the engine) against numpy's.  parts > 0: the
     spill's owners, kmer_hash % parts % n == r (split children keep their
-    owner), whose tables come in partition order and are sorted here."""
+    owner), whose tables come in partition order and are sorted here.
+    buckets > 1: the tables come bucket-major (`bucket_order` checks the
+    order) and are sorted here."""
     from dsk_tpu_torch.dist.spill import kmer_hash_planes_np
 
     n = len(results)
@@ -1795,7 +1822,9 @@ def check_rank_tables(results, uniq, counts, hist_want, what: str,
     for r, res in enumerate(results):
         mask = owner == r
         vals, cnt = kmer_values(res.kmers), res.counts
-        if parts:
+        if buckets > 1:
+            bucket_order(res.kmers, buckets, f"{what}, rank {r}")
+        if parts or buckets > 1:
             order = np.argsort(vals, kind="stable")
             vals, cnt = vals[order], cnt[order]
         if not (np.array_equal(vals, uniq[mask])
@@ -2656,6 +2685,294 @@ def phase_spill_nccl(tmp: str) -> int:
         multihost.shutdown()
 
 
+# -- phase 12: key-space buckets of the flush; -max-disk across ranks --------
+
+S_REAL = 8          # 12: key-space buckets, capb = CAP_REAL // 8 = 196,608
+MAXD_RANKS = 600    # 12(d): -max-disk, MB: a spill budget of 450 MB
+
+
+def bucket_of(kmers: np.ndarray, S: int) -> np.ndarray:
+    """Each (n, 2) uint32 row's bucket: the top log2 S bits of its hash."""
+    from dsk_tpu_torch.dist.spill import kmer_hash_planes_np
+
+    h = kmer_hash_planes_np([np.ascontiguousarray(kmers[:, 0]),
+                             np.ascontiguousarray(kmers[:, 1])])
+    return h >> np.uint32(32 - (S.bit_length() - 1))
+
+
+def bucket_order(kmers: np.ndarray, S: int, what: str) -> np.ndarray:
+    """Rows gathered from a bucket-major table: their buckets never
+    decrease and the rows ascend within each bucket.  Returns the rows a
+    bucket."""
+    b = bucket_of(kmers, S)
+    vals = kmer_values(kmers)
+    db = np.diff(b.astype(np.int64))
+    if (db < 0).any() or ((db == 0) & (np.diff(vals) <= 0)).any():
+        raise AssertionError(f"{what}: the rows are not bucket-major, "
+                             f"ascending within each bucket")
+    return np.bincount(b, minlength=S)
+
+
+def bucket_table(tab_p, tab_c, S: int, what: str) -> np.ndarray:
+    """A whole (2, cap) bucket-major table on the card: bucket b's slots
+    [b * capb, (b + 1) * capb) hold its live rows first, each of bucket b,
+    ascending, then dead rows.  Returns the rows a bucket."""
+    from dsk_tpu_torch.dist.engine import state_to_jax
+
+    planes, counts = state_to_jax(tab_p, tab_c)
+    capb = counts.shape[0] // S
+    live = (counts > 0).reshape(S, capb)
+    n_b = live.sum(1)
+    if (live != (np.arange(capb)[None, :] < n_b[:, None])).any():
+        raise AssertionError(f"{what}: a bucket's live rows are not its "
+                             f"first slots")
+    keep = live.reshape(-1)
+    rows = planes[:, keep].T
+    if (np.repeat(np.arange(S), n_b) != bucket_of(rows, S)).any():
+        raise AssertionError(f"{what}: a row sits in another bucket than "
+                             f"its hash's")
+    if not np.array_equal(bucket_order(rows, S, what), n_b):
+        raise AssertionError(f"{what}: bucket sizes differ")
+    if (planes[:, ~keep] != SENTINEL).any():
+        raise AssertionError(f"{what}: a dead slot holds a key")
+    return n_b
+
+
+def phase_buckets_real(real_numpy) -> dict:
+    """12(a): phase 5's stream with S_REAL key-space buckets,
+    bucketize_at "flush" and "route", in turns with the flat flush (S=1);
+    each table against numpy and checked bucket-major slot by slot; the
+    flush's pieces (CUDA events, the engine's own flush_log); the peak
+    device bytes a buffer row of one 8-batch flush of each."""
+    import torch
+
+    from dsk_tpu_torch.dist.engine import DistCountEngine, _RouteLog
+    from dsk_tpu_torch.kmer import cuda_kernels as ck
+
+    uniq, counts = real_numpy
+    hist_want = np.bincount(np.clip(counts, 1, 10000), minlength=10001)
+    hist_want[0] = 0
+    batches = make_batches()
+    geom = dict(device=DEVICE, batch_rows=ROWS, row_len=ROW_LEN,
+                buf_batches=G_REAL, table_cap=CAP_REAL)
+    variants = {"S=1": {}, "flush": dict(flush_buckets=S_REAL),
+                "route": dict(flush_buckets=S_REAL, bucketize_at="route")}
+    engines = {name: DistCountEngine(K_REAL, **geom, **kw)
+               for name, kw in variants.items()}
+    for name, eng in engines.items():
+        if eng.plan.S != (1 if name == "S=1" else S_REAL):
+            raise AssertionError(f"12(a) {name}: S {eng.plan.S}")
+        eng.count_stream(iter(batches[:G_REAL]))  # warm-up: first calls
+    groups = -(-N_BATCHES // G_REAL)
+    runs = {name: [] for name in variants}
+    path_launches = 0
+    sizes = None
+    for name in ("S=1", "flush", "route", "route", "flush", "S=1"):
+        eng = engines[name]
+        eng.flush_log = _RouteLog(eng.device, _RouteLog.FLUSH_PIECES)
+        torch.cuda.synchronize()
+        ck.extract_wire_planes.launches = 0
+        ck.extract_canonical_planes.launches = 0
+        t0 = time.perf_counter()
+        res = eng.count_stream(iter(batches), finalize=False)  # drained
+        wall = time.perf_counter() - t0
+        launches = (ck.extract_wire_planes.launches,
+                    ck.extract_canonical_planes.launches)
+        torch.cuda.synchronize()
+        eng.flush_log.settle()
+        if launches != (groups, 0):
+            raise AssertionError(f"12(a) {name}: (fused, codes-input) "
+                                 f"launches {launches}, want ({groups}, 0)")
+        if name != "S=1":
+            path_launches += launches[0]
+            sizes = bucket_table(*eng._last_state, S_REAL, f"12(a) {name}")
+        (_, kmers, cnt), = eng.iter_partitions()
+        if name != "S=1" and not np.array_equal(
+                bucket_order(kmers, S_REAL, f"12(a) {name}"), sizes):
+            raise AssertionError(f"12(a) {name}: gathered buckets differ")
+        order = np.argsort(kmer_values(kmers), kind="stable")
+        if not (np.array_equal(kmer_values(kmers)[order], uniq)
+                and np.array_equal(cnt[order], counts)
+                and np.array_equal(res.histogram, hist_want)):
+            raise AssertionError(f"12(a) {name}: table != numpy's count")
+        runs[name].append((wall, {p: sum(v) for p, v in
+                                  eng.flush_log.ms.items()}))
+        eng.flush_log = None
+        eng._last_state = None
+        del res, kmers, cnt, order
+    del engines
+    torch.cuda.empty_cache()
+    staged = [wire_group([b.codes for b in batches[:8]], "exc") + (None,)]
+    peaks = {name: flush_peak_bytes(False, staged, **kw)
+             for name, kw in variants.items()}
+    card = card_line()
+    log(f"[12 buckets] (a) phase 5's stream ({uniq.shape[0]} distinct), "
+        f"table_cap {CAP_REAL}, S={S_REAL} (capb {CAP_REAL // S_REAL}, "
+        f"rows a bucket {sizes.tolist()}), bucketize_at flush and route, in "
+        f"turns with S=1: every table == numpy's count, every bucket's "
+        f"rows its hash's top 3 bits, first in its slots, ascending; fused "
+        f"launches {groups} a stream, codes-input 0 ({card})")
+    n_bases = N_BATCHES * ROWS * ROW_LEN
+    for name, rr in runs.items():
+        log(f"[12 buckets] (a) {name}: wall "
+            f"{' / '.join(f'{w:.3f}' for w, _ in rr)} s "
+            f"({' / '.join(f'{n_bases / w / 1e6:.2f}' for w, _ in rr)}"
+            f" Mbases/s); flush pieces over the stream's {groups} flushes, "
+            f"ms (CUDA events): " + ", ".join(
+                f"{p} {' / '.join(f'{m[p]:.3f}' for _, m in rr)}"
+                for p in _RouteLog.FLUSH_PIECES)
+            + f"; flush total "
+            f"{' / '.join(f'{sum(m.values()):.3f}' for _, m in rr)}")
+    log("[12 buckets] (a) peak device bytes a buffer row of one 8-batch "
+        "flush (W=2), against the planner's charge: " + "; ".join(
+            f"{name} {pk['bytes_per_row']:.1f} B (charge {pk['charge']})"
+            for name, pk in peaks.items()))
+    for name, pk in peaks.items():
+        if pk["bytes_per_row"] > pk["charge"]:
+            raise AssertionError(f"12(a) {name}: the flush's peak "
+                                 f"{pk['bytes_per_row']:.1f} B a row passes "
+                                 f"the planner's {pk['charge']}")
+    return {"launches": path_launches,
+            "ms": {name: [m for _, m in rr] for name, rr in runs.items()},
+            "wall": {name: [w for w, _ in rr] for name, rr in runs.items()},
+            "peaks": peaks}
+
+
+def phase_buckets_ranks(real_numpy, err_numpy, tmp: str) -> dict:
+    """12(b) 9(a)'s 4 simulated ranks at S_REAL, hash route, the pieces of
+    the route step's fold timed; (c) execute
+    with -flush-buckets 8 on k27; (d) 11(a)'s spill with the whole input
+    on rank 0 under a -max-disk the whole spill fits: one pass."""
+    import torch
+
+    from dsk_tpu_torch.dist.engine import (
+        DistCountEngine,
+        _resolve_device,
+        _RouteLog,
+    )
+    from dsk_tpu_torch.engine.run import RunParams, execute
+    from dsk_tpu_torch.io.bank import Bank, open_bank
+    from dsk_tpu_torch.kmer import cuda_kernels as ck
+
+    card = card_line()
+    uniq, counts = real_numpy
+    hist_want = np.bincount(np.clip(counts, 1, 10000), minlength=10001)
+    hist_want[0] = 0
+    batches = make_batches()
+    cap = CAP_REAL // 4
+
+    def loop():  # a Loopback meets its ranks for one run
+        return _loopback().Loopback(N_SIM, _resolve_device(DEVICE))
+
+    def routed(ranks, batches):
+        """A rank of 9(a)'s routed count at S_REAL, its fold's pieces
+        timed by the engine's flush_log."""
+        eng = DistCountEngine(K_REAL, device=DEVICE, ranks=ranks,
+                              batch_rows=ROWS, row_len=ROW_LEN,
+                              buf_batches=G_SIM, table_cap=cap,
+                              flush_buckets=S_REAL)
+        eng.flush_log = _RouteLog(eng.device, _RouteLog.FLUSH_PIECES)
+        res = eng.count_stream(iter(batches[ranks.rank::N_SIM]))
+        torch.cuda.synchronize()
+        eng.flush_log.settle()
+        return res, eng.route_log, eng.flush_log
+
+    loop().run(lambda ranks: routed(ranks, batches[: N_SIM * G_SIM]))
+    torch.cuda.synchronize()
+    ck.extract_wire_planes.launches = 0
+    ck.extract_canonical_planes.launches = 0
+    t0 = time.perf_counter()
+    ranks_out = loop().run(lambda ranks: routed(ranks, batches))
+    wall = time.perf_counter() - t0
+    launches = [ck.extract_wire_planes.launches,
+                ck.extract_canonical_planes.launches]
+    rank_groups = sum(len(lg.sent_rows) for _, lg, _ in ranks_out)
+    if launches != [rank_groups, 0]:
+        raise AssertionError(f"12(b): (fused, codes-input) launches "
+                             f"{launches}, rank-groups {rank_groups}")
+    check_rank_tables([res for res, _, _ in ranks_out], uniq, counts,
+                      hist_want, "12(b) hash route at S=8", buckets=S_REAL)
+    fold = [x for _, lg, _ in ranks_out for x in lg.ms["fold"]]
+    pieces = {p: float(np.mean([x for *_, fl in ranks_out for x in fl.ms[p]]))
+              for p in ("bucket_rows", "fold", "relayout")}
+    log(f"[12 buckets] (b) 9(a)'s {N_SIM} simulated ranks, phase 5's "
+        f"stream, table_cap {cap} a rank at S={S_REAL}: every rank's table "
+        f"== numpy's k-mers of its owner, bucket-major, every histogram == "
+        f"numpy's; fused launches {launches[0]} (one a rank-group); wall "
+        f"{wall:.3f} s; the route step's fold with the bucket layout "
+        f"{np.mean(fold):.3f} ms a rank-group (mean of {len(fold)}; 9(a)'s "
+        f"flat fold beside it), its pieces (flush_log, CUDA events, mean "
+        f"ms): " + ", ".join(f"{p} {v:.3f}" for p, v in pieces.items())
+        + f" ({card})")
+    path = launches[0]
+    del ranks_out, batches
+    torch.cuda.empty_cache()
+
+    ck.extract_wire_planes.launches = 0
+    ck.extract_canonical_planes.launches = 0
+    out = execute(RunParams(
+        file=os.path.join(DATA, "read50x_ref10K_e001.fasta.gz"),
+        kmer_size=27, abundance_min=1, histo=True, verbose=0, device=DEVICE,
+        out=os.path.join(tmp, "k27_buckets"), storage_type="none",
+        flush_buckets=8))
+    _histo_equal(out.histo_path, "k27.histo", "12(c) -flush-buckets 8")
+    c_launches = ck.extract_wire_planes.launches
+    if c_launches <= 0 or ck.extract_canonical_planes.launches:
+        raise AssertionError(f"12(c): fused launches {c_launches}, "
+                             f"codes-input "
+                             f"{ck.extract_canonical_planes.launches}")
+    log(f"[12 buckets] (c) execute -flush-buckets 8 -storage-type none on "
+        f"the k27 fixture: .histo == k27.histo; fused launches {c_launches}")
+    path += c_launches
+
+    uniq_e, counts_e = err_numpy
+    hist_e = np.bincount(np.clip(counts_e, 1, 10000), minlength=10001)
+    hist_e[0] = 0
+    fasta = os.path.join(tmp, "err.fa")
+    write_fasta(make_error_batches(), fasta)
+
+    def rank(ranks):
+        eng = DistCountEngine(K_REAL, device=DEVICE, ranks=ranks,
+                              batch_rows=ROWS, row_len=ROW_LEN,
+                              buf_batches=G_REAL, table_cap=SP_CAP,
+                              spill_partitions=SP_PARTS, spill_dir=tmp)
+        bank = (open_bank(fasta) if ranks.rank == 0
+                else Bank(uri=fasta, files=[], units=[], nb_banks_total=1))
+        return eng.count(bank, cache_dir=tmp, max_disk_mb=MAXD_RANKS)
+
+    torch.cuda.synchronize()
+    ck.extract_wire_planes.launches = 0
+    ck.extract_canonical_planes.launches = 0
+    t0 = time.perf_counter()
+    results = loop().run(rank)
+    wall = time.perf_counter() - t0
+    d_launches = ck.extract_wire_planes.launches
+    if ck.extract_canonical_planes.launches:
+        raise AssertionError("12(d): a codes-input launch")
+    check_rank_tables(results, uniq_e, counts_e, hist_e,
+                      "12(d) spill, the whole input on rank 0",
+                      parts=SP_PARTS)
+    # one pass: the engine's, and no SpillDiskOverflow raised
+    spilled = [r.info["spill_rows"] * 4 * 3 for r in results]  # 3 words
+    budget = (MAXD_RANKS * 3 // 4) << 20
+    if not (budget // N_SIM < spilled[0] <= budget and not any(spilled[1:])
+            and d_launches == -(-N_BATCHES // G_REAL)):
+        raise AssertionError(f"12(d): spilled bytes {spilled} against a "
+                             f"{budget} B budget, fused launches "
+                             f"{d_launches}")
+    if os.path.exists(fasta):
+        os.unlink(fasta)
+    log(f"[12 buckets] (d) 8(b)'s error-rich stream as one FASTA, the whole "
+        f"of it on rank 0 of {N_SIM} simulated ranks, count(max_disk_mb="
+        f"{MAXD_RANKS}): rank 0 spilled {spilled[0]} B, over a quarter of "
+        f"the {budget} B spill budget (each rank's share before) and under "
+        f"the whole: one pass, no SpillDiskOverflow, every rank's partitions "
+        f"== numpy's; fused launches {d_launches}; wall {wall:.3f} s "
+        f"({card})")
+    path += d_launches
+    return {"launches": path}
+
+
 def main() -> int:
     import torch
 
@@ -2744,15 +3061,18 @@ def main() -> int:
         phase = "superkmer"
         mz_times = phase_minimizers()
         sk = phase_superkmer(real_numpy, err_numpy, routed, rates)
-        del real_numpy
         with tempfile.TemporaryDirectory(prefix="dsk_torch_smoke_") as tmp:
             phase_superkmer_execute(tmp)
         phase = "spill-ranks"
         with tempfile.TemporaryDirectory(prefix="dsk_torch_smoke_") as tmp:
             sp_ranks = phase_spill_ranks(tmp, err_numpy)
-        del err_numpy
         with tempfile.TemporaryDirectory(prefix="dsk_torch_smoke_") as tmp:
             sp_nccl = phase_spill_nccl(tmp)
+        phase = "buckets"
+        buckets = phase_buckets_real(real_numpy)
+        with tempfile.TemporaryDirectory(prefix="dsk_torch_smoke_") as tmp:
+            buckets_ranks = phase_buckets_ranks(real_numpy, err_numpy, tmp)
+        del real_numpy, err_numpy
     except Exception as e:  # any phase failing fails the smoke
         print(f"chip_smoke: phase {phase} FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -2769,7 +3089,8 @@ def main() -> int:
         "source": "dsk_tpu_torch/csrc/extract.cu",
         "replaces": "dsk_tpu/kmer/pallas_kernels.py:30",
         "launches": (launches + spill["launches"] + routed["launches"]
-                     + nccl["launches"] + sp_ranks["launches"] + sp_nccl),
+                     + nccl["launches"] + sp_ranks["launches"] + sp_nccl
+                     + buckets["launches"] + buckets_ranks["launches"]),
         "max_abs_err": wire_err,
         "ms": wire_ms,
         "plain_ms": wire_plain_ms,
@@ -2863,7 +3184,11 @@ def main() -> int:
           f"{N_SIM} simulated ranks "
           f"{' / '.join(f'{s:.3f}' for s in sp_ranks['ranks_s'])} s vs one "
           f"rank {' / '.join(f'{s:.3f}' for s in sp_ranks['one_s'])} s in "
-          f"turns, {sp_ranks['rows'][0]} rows spilled")
+          f"turns, {sp_ranks['rows'][0]} rows spilled; flush of the "
+          f"134-Mbase stream at S={S_REAL} "
+          + "; ".join(f"{name} " + " / ".join(
+              f"{sum(m.values()):.3f}" for m in ms) + " ms"
+              for name, ms in buckets["ms"].items()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -62,7 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     opt.add_argument("-max-memory", dest="max_memory", type=int, default=5000,
                      help="max memory in MBytes (device table budget)")
     opt.add_argument("-max-disk", dest="max_disk", type=int, default=0,
-                     help="max temporary disk space in MBytes (0 = auto)")
+                     help="max temporary disk space in MBytes (0 = auto); "
+                          "in spill mode the spill files of all ranks "
+                          "together take at most 3/4 of it, and each "
+                          "rank's multi-pass batch cache of its own input "
+                          "at most 1/4")
     opt.add_argument("-histo-max", dest="histo_max", type=int, default=10000,
                      help="max abundance bin in the histogram (default 10000)")
     opt.add_argument("-histo", type=int, default=0,
@@ -99,7 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     opt.add_argument("-max-retries", dest="max_retries", type=int, default=3,
                      help="auto re-plan attempts on capacity overflow")
     opt.add_argument("-flush-buckets", dest="flush_buckets", type=int,
-                     default=1, help="1 = flat flush (the only one ported)")
+                     default=1,
+                     help=">1: S key-space buckets of the table, at most "
+                          "this many (a power of two); the store's "
+                          "partitions are then written bucket by bucket "
+                          "(1 = flat flush)")
     opt.add_argument("-trace-dir", dest="trace_dir", default=None,
                      help="write a torch.profiler trace of the count "
                           "phase (CUDA activity included on a GPU) to "

@@ -15,7 +15,8 @@ Spill mode (-spill on, or auto when the planner finds it cheaper than
 more passes) counts through the engine's host partition store; a
 `<prefix>.spillckpt` directory keeps its fill and count marks, so a run
 killed mid-count resumes with -resume without reading the input again.
-A spill store past -max-disk doubles the passes.  One repair against the
+A spill past -max-disk doubles the passes; across ranks -max-disk is
+the budget of all ranks' spill files together.  One repair against the
 reference: a spill fill manifest is reused only under -resume (or the
 run's own work-preserving retry); any other run clears the directory
 first, and the checkpoint fingerprint covers the input's size and mtime.
@@ -25,8 +26,9 @@ under torchrun starts it, dist/multihost.py) every rank runs execute with
 the same parameters: rank 0 plans and broadcasts the plan, each rank
 counts its shard_bank share in the routed table mode (rank r owns output
 partition r), and -send-slack sizes the route capacity; a RoutingOverflow
-retries with twice the slack and keeps the counted work as the
-WireOverflow retry does.  Every valve is raised on every rank at once, so
+(a rank's rows for one owner, or the rows of one key-space bucket of a
+-flush-buckets flush, on any world size) retries with twice the slack
+and keeps the counted work as the WireOverflow retry does.  Every valve is raised on every rank at once, so
 every rank takes the same retry.  Rank 0 decides checkpoint reuse and
 broadcasts it, gathers each rank's partition in turn, and alone writes the
 .h5 store, the .histo and the .histo2D; every rank returns the same

@@ -54,9 +54,20 @@ def test_table_overflow_raises_like_jax(data_dir):
     dict(flush_buckets=2), dict(flush_mode="merge", per_bank=True),
     dict(flush_mode="merge"), dict(flush_buckets=4),
 ])
-def test_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        DistCountEngine(31, device="cpu", **kwargs)
+def test_unported_modes_raise(data_dir, kwargs):
+    # flush_mode="merge" is not ported and raises; flush_buckets > 1 is
+    # ported: the engine builds and counts what dsk_tpu counts, in its
+    # bucket-major order (tests/test_torch_buckets.py holds the rest)
+    if kwargs.get("flush_mode") == "merge":
+        with pytest.raises(NotImplementedError):
+            DistCountEngine(31, device="cpu", **kwargs)
+        return
+    uri = str(data_dir / "readN.fasta")
+    small = dict(PLAN, table_cap=1 << 14)
+    want = JaxEngine(31, mesh=_mesh1(), **small, **kwargs).count(uri)
+    eng = DistCountEngine(31, device="cpu", **small, **kwargs)
+    assert eng.plan.S == kwargs["flush_buckets"]
+    _assert_same(eng.count(uri), want)
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

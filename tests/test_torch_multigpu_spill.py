@@ -23,6 +23,7 @@ through gather_to_root.
 
 import os
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -407,26 +408,34 @@ def test_disk_overflow_on_one_rank_raises_on_every_rank(tmp_path):
                 if f.startswith("dsk_tpu_torch_spill_")]
 
 
-def test_execute_disk_overflow_retry_keeps_the_output(tmp_path, monkeypatch):
-    """execute on 4 simulated ranks, -spill on, -max-disk 8: the plan's one
-    pass gives each rank 1 MB of store (6 MB of spill budget over 4
-    ranks), rank 0 (the whole gzip input, in one-batch groups) spills
-    more, every rank raises SpillDiskOverflow and doubles the passes until
-    rank 0's share fits, and the output is the normal one."""
-    pytest.importorskip("h5py")
+def pinned_plan(monkeypatch, **fields):
+    """engine/run.py's plan with `fields` set over the planner's."""
     from dsk_tpu_torch.engine import run
 
     plan_resources = run.plan_resources
 
-    def one_batch_groups(*args, **kw):
+    def planned(*args, **kw):
         plan = plan_resources(*args, **kw)
-        plan.buf_batches = 1
+        for name, value in fields.items():
+            setattr(plan, name, value)
         return plan
 
-    monkeypatch.setattr(run, "plan_resources", one_batch_groups)
+    monkeypatch.setattr(run, "plan_resources", planned)
+
+
+def test_execute_disk_overflow_retry_keeps_the_output(tmp_path, monkeypatch):
+    """execute on 4 simulated ranks, -spill on, -max-disk 3 (a 2 MB spill
+    budget for all ranks together), the plan pinned to one pass in
+    one-batch groups: rank 0 (the whole gzip input) spills 2.7 MB, every
+    rank raises SpillDiskOverflow and doubles the passes until the spill
+    fits, and the output is the normal one."""
+    pytest.importorskip("h5py")
+    from dsk_tpu_torch.engine import run
+
+    pinned_plan(monkeypatch, buf_batches=1, n_passes=1)
     common = dict(file=K27, kmer_size=K, abundance_min=1, histo=True,
                   device="cpu", verbose=0, nb_cores=1, batch_rows=256,
-                  row_len=128, spill="on", max_disk=8,
+                  row_len=128, spill="on", max_disk=3,
                   out_tmp=str(tmp_path / "tmp"))
     outs = run_ranks(4, lambda ranks: run.execute(
         run.RunParams(out=str(tmp_path / "two"), **common), ranks))
@@ -441,6 +450,112 @@ def test_execute_disk_overflow_retry_keeps_the_output(tmp_path, monkeypatch):
     assert (sorted_dump(str(tmp_path / "two.h5"), tmp_path / "two.txt")
             == sorted_dump(one.h5_path, tmp_path / "one.txt"))
     assert os.listdir(tmp_path / "tmp") == []
+
+
+def test_whole_budget_on_one_rank_runs_one_pass(tmp_path, monkeypatch):
+    """-max-disk is one budget for all ranks: with the whole (gzip) input
+    on rank 0 of 2, a -max-disk whose spill share (6 MB) the whole spill
+    (3.9 MB) fits but half of it (each rank's share before) does not, the
+    count runs in the plan's one pass, as dsk_tpu's, with no
+    SpillDiskOverflow, and its output is the normal one."""
+    pytest.importorskip("h5py")
+    from dsk_tpu_torch.engine import run
+
+    pinned_plan(monkeypatch, buf_batches=1)
+    common = dict(file=K27, kmer_size=K, abundance_min=1, histo=True,
+                  device="cpu", verbose=1, nb_cores=1, batch_rows=64,
+                  row_len=128, spill="on", max_disk=8,
+                  out_tmp=str(tmp_path / "tmp"))
+    outs = run_ranks(2, lambda ranks: run.execute(
+        run.RunParams(out=str(tmp_path / "two"), **common), ranks))
+    assert [o.info["config"]["nb_passes"] for o in outs] == [1, 1]
+    info = [o.result.info for o in outs]
+    assert info[0]["n_bases_local"] == info[0]["n_bases"]  # all on rank 0
+    assert (6 << 20) // 2 < info[0]["spill_rows"] * 12 <= 6 << 20
+    assert ((tmp_path / "two.histo").read_bytes()
+            == (DATA / "k27.histo").read_bytes())
+    one = run.execute(run.RunParams(out=str(tmp_path / "one"),
+                                    **dict(common, verbose=0)))
+    assert (sorted_dump(str(tmp_path / "two.h5"), tmp_path / "two.txt")
+            == sorted_dump(one.h5_path, tmp_path / "one.txt"))
+
+
+def test_spill_sum_over_budget_raises_on_every_rank_at_one_group(
+        tmp_path, plain_k27):
+    """Each of 2 ranks spills ~1.03 MB of the byte-split input, under the
+    2 MB budget of -max-disk 3 alone, but their sum passes it: the fill's
+    agreement raises SpillDiskOverflow on both ranks at the same group
+    (or at the fill's end), and the files then hold at most the budget
+    plus, on each rank, the records of its last two groups (the
+    agreements lag the writer thread by one group, and one more is in
+    flight)."""
+    budget = (3 * 3 // 4) << 20
+    groups = {0: [], 1: []}
+    held = {}
+    delete = port_engine._delete_spill
+
+    def spy_delete(spill):
+        held[spill.host] = spill.bytes_written
+        delete(spill)
+
+    def rank(ranks):
+        eng = rank_engine(ranks, **SPILL)
+        drain = eng._drain_spill_group
+
+        def spy_drain(rec, bounds, ready, spill, acc, sub):
+            before = spill.bytes_written
+            drain(rec, bounds, ready, spill, acc, sub)
+            groups[ranks.rank].append(spill.bytes_written - before)
+
+        eng._drain_spill_group = spy_drain
+        try:
+            eng.count(share(plain_k27, ranks), cache_dir=str(tmp_path),
+                      max_disk_mb=3)
+        except Exception as e:
+            return e
+
+    import unittest.mock
+
+    with unittest.mock.patch.object(port_engine, "_delete_spill",
+                                    spy_delete):
+        errs = run_ranks(2, rank)
+    assert all(isinstance(e, SpillDiskOverflow) for e in errs), errs
+    assert str(errs[0]) == str(errs[1])
+    # one agreement: a group's, or the fill's end where the writer thread
+    # had not appended the last group's records at its agreement yet
+    assert re.search(r"for all ranks together\) at (fill group \d+|the "
+                     r"fill's end);", str(errs[0])), errs[0]
+    assert all(0 < held[r] <= budget for r in (0, 1))  # no store alone
+    total = held[0] + held[1]
+    assert budget < total <= budget + sum(sum(g[-2:]) for g in
+                                          groups.values())
+
+
+def test_execute_spill_sum_over_budget_retry_ends_equal(tmp_path,
+                                                        monkeypatch,
+                                                        plain_k27):
+    """The same through execute on 2 ranks (the plan pinned to one pass in
+    one-batch groups): every rank raises, the passes double, and the
+    output equals one device's."""
+    pytest.importorskip("h5py")
+    from dsk_tpu_torch.engine import run
+
+    pinned_plan(monkeypatch, buf_batches=1, n_passes=1)
+    common = dict(file=plain_k27, kmer_size=K, abundance_min=1, histo=True,
+                  device="cpu", verbose=0, nb_cores=1, batch_rows=256,
+                  row_len=128, spill="on", max_disk=3,
+                  out_tmp=str(tmp_path / "tmp"))
+    outs = run_ranks(2, lambda ranks: run.execute(
+        run.RunParams(out=str(tmp_path / "two"), **common), ranks))
+    assert [o.info["config"]["nb_passes"] for o in outs] == [2, 2]
+    assert all(o.result.info["n_bases_local"] < o.result.info["n_bases"]
+               for o in outs)
+    assert ((tmp_path / "two.histo").read_bytes()
+            == (DATA / "k27.histo").read_bytes())
+    one = run.execute(run.RunParams(out=str(tmp_path / "one"),
+                                    **dict(common, max_disk=0)))
+    assert (sorted_dump(str(tmp_path / "two.h5"), tmp_path / "two.txt")
+            == sorted_dump(one.h5_path, tmp_path / "one.txt"))
 
 
 @pytest.fixture
