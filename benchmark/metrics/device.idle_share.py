@@ -1,0 +1,10 @@
+"""device.idle_share (%): the share of the traced window in which no
+kernel, copy or fill ran on the device (one minus the union of their
+intervals over the window)."""
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
