@@ -1,6 +1,7 @@
 """The control of `correct`: the plain reference with its keys held in 32
-bits (reference.fingerprint_fold), put in the program's place at a cell's
-own size and judged as the benchmark judges the program.  Each seed's
+bits (reference.fingerprint_fold; over several banks, k-mers that share a
+key merge their counts in every bank), put in the program's place at a
+cell's own size and judged as the benchmark judges the program.  Each seed's
 readings have to exceed a limit somewhere; the exact reference, judged
 the same way, reads 0 everywhere.  The benchmark's own runs never run it.
 
@@ -29,19 +30,20 @@ from benchmark import generate, reference, run  # noqa: E402
 def readings(spec: dict, seed: int, device: str = "cuda") -> dict:
     """The control's and the exact reference's readings on one seed."""
     with tempfile.TemporaryDirectory(prefix="dskbench-") as work:
-        fastq = os.path.join(work, "reads.fastq")
-        codes = generate.write_inputs(seed, spec["config"], fastq)["codes"]
-        params = run.job_params(spec["config"], spec["traffic"], fastq,
-                                work, device)
+        inputs = generate.write_cell_inputs(seed, spec["config"],
+                                            spec["traffic"], work)
+        params = run.job_params(spec["config"], spec["traffic"],
+                                inputs["files"], work, device)
     lims = (params.histo_max, params.abundance_min, params.abundance_max)
-    ref = reference.reference_answer(codes, params.kmer_size, *lims,
-                                     device=device)
+    ref = reference.reference_answer(inputs["banks"], params.kmer_size,
+                                     *lims, device=device)
     out = {}
     folded = reference.fingerprint_fold(ref["values"], ref["counts"], device)
     for name, (v, c) in (("control", folded),
                          ("exact", (ref["values"], ref["counts"]))):
         a = reference.answer(v, c, *lims)
         job = {"histo": a["histo"], "histogram": a["histogram"],
+               "histo2d": a.get("histo2d"),
                "n_solid": int(a["solid_values"].size),
                "n_distinct": int(v.size)}
         table = (v, c, a["solid_values"], a["solid_counts"])

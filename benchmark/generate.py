@@ -21,18 +21,33 @@ is `code ^ 2`.  A configuration file gives:
   substitution_rate   each base of a read is replaced by one of the other
                       three with this probability (uniform)
   quality             the one Phred character of every quality line
+  assembly_bank       optional, true: the genome is written as one FASTA
+                      record, 80 bases a line, and given as bank 0 before
+                      the reads (DSK's -histo2D input)
 
 Reads start uniformly over the genome and come from either strand with
-probability 1/2.
+probability 1/2.  A traffic mix with `gzip_level` has the reads written as
+one gzip member at that level (mtime 0, a fixed name) the way pigz writes
+one: 128-KiB blocks deflated apart on all cores, each primed with the 32
+KiB before it and ended by a sync flush, so one seed gives the same
+compressed bytes on one zlib, whatever the number of cores.  Writing the
+genome or compressing draws nothing, so a seed's reads are the same in
+every form.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import struct
+import zlib
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 LETTERS = np.frombuffer(b"ACTG", dtype=np.uint8)
+FASTA_LINE = 80  # bases a line of the assembly's FASTA record
 CHUNK_READS = 1 << 18  # reads drawn and written together
 
 
@@ -119,28 +134,141 @@ def fastq_records(codes: np.ndarray, first_id: int, id_width: int,
     return rec
 
 
-def write_inputs(seed: int, cfg: dict, path: str) -> dict:
+GZIP_BLOCK = 128 << 10  # pigz's block
+GZIP_WINDOW = 32 << 10  # deflate's window: the dictionary of a block
+
+
+def deflate_block(block: bytes, prior: bytes, level: int,
+                  last: bool) -> bytes:
+    """Raw deflate of one block, primed with the input before it; a sync
+    flush ends it, so the next block's output follows on a byte, and the
+    last block finishes the stream."""
+    kw = {"zdict": prior} if prior else {}
+    c = zlib.compressobj(level, zlib.DEFLATED, -zlib.MAX_WBITS, **kw)
+    return c.compress(block) + c.flush(
+        zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH)
+
+
+class GzipBlocks:
+    """A writer of one gzip member (mtime 0, the name `name`) whose
+    blocks of GZIP_BLOCK input bytes are deflated on `pool` and written
+    in order."""
+
+    def __init__(self, raw, name: str, level: int, pool):
+        self.raw, self.level, self.pool = raw, level, pool
+        self.rest, self.prior = b"", b""
+        self.crc = self.size = 0
+        self.pending: deque = deque()
+        raw.write(b"\x1f\x8b\x08\x08" + bytes(4) + b"\x00\xff"
+                  + name.encode() + b"\x00")
+
+    def _submit(self, block: bytes, last: bool) -> None:
+        self.pending.append(self.pool.submit(
+            deflate_block, block, self.prior, self.level, last))
+        self.prior = (self.prior + block)[-GZIP_WINDOW:]
+
+    def _drain(self, wait: bool) -> None:
+        while self.pending and (wait or self.pending[0].done()):
+            self.raw.write(self.pending.popleft().result())
+
+    def write(self, data: bytes) -> None:
+        self.crc = zlib.crc32(data, self.crc)
+        self.size += len(data)
+        data = self.rest + data
+        # a block's bounds are multiples of GZIP_BLOCK of the whole
+        # input; at least one byte stays back for the last block
+        n = (len(data) - 1) // GZIP_BLOCK * GZIP_BLOCK
+        for lo in range(0, n, GZIP_BLOCK):
+            self._submit(data[lo:lo + GZIP_BLOCK], False)
+        self.rest = data[n:]
+        self._drain(False)
+
+    def close(self) -> None:
+        self._submit(self.rest, True)
+        self._drain(True)
+        self.raw.write(struct.pack("<II", self.crc & 0xFFFFFFFF,
+                                   self.size & 0xFFFFFFFF))
+
+
+def fasta_record(codes: np.ndarray, name: str,
+                 line_width: int = FASTA_LINE) -> bytes:
+    """'>name\n' and the bases of `codes`, line_width a line."""
+    text = LETTERS[codes]
+    n_full = text.size // line_width
+    body = np.empty((n_full, line_width + 1), np.uint8)
+    body[:, :line_width] = text[:n_full * line_width].reshape(
+        n_full, line_width)
+    body[:, -1] = ord("\n")
+    tail = text[n_full * line_width:].tobytes()
+    return (b">" + name.encode() + b"\n" + body.tobytes()
+            + (tail + b"\n" if tail else b""))
+
+
+@contextlib.contextmanager
+def _synced(path: str):
+    # on disk before the window: its writeback is set-up's, not a job's
+    with open(path, "wb") as f:
+        yield f
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def write_inputs(seed: int, cfg: dict, path: str,
+                 gzip_level: int | None = None,
+                 assembly: str | None = None) -> dict:
     """Draw the genome and reads of `cfg` from `seed`, write the reads to
-    `path` as FASTQ, and return the reads' codes (n, read_length) uint8
-    with counts of what was drawn."""
+    `path` as FASTQ (one gzip member at `gzip_level` if it is given) and,
+    if `assembly` is given, the genome to that path as one FASTA record.
+    Returns the reads' codes (n, read_length) uint8, the genome's codes,
+    and counts of what was drawn and written."""
     rng = np.random.default_rng(seed)
     genome = make_genome(rng, cfg)
+    if assembly is not None:
+        with _synced(assembly) as f:
+            f.write(fasta_record(genome, "assembly"))
     count = int(cfg["read_count"])
     id_width = len(str(max(count - 1, 0)))
-    parts, n_rev, n_sub = [], 0, 0
-    with open(path, "wb") as f:
+    parts, n_rev, n_sub, plain = [], 0, 0, 0
+    with contextlib.ExitStack() as stack:
+        out = raw = stack.enter_context(_synced(path))
+        if gzip_level is not None:
+            pool = stack.enter_context(
+                ThreadPoolExecutor(os.cpu_count() or 1))
+            out = GzipBlocks(raw, os.path.basename(path).removesuffix(".gz"),
+                             int(gzip_level), pool)
         done = 0
         for reads, rev, subs in make_reads(rng, genome, cfg):
-            f.write(fastq_records(reads, done, id_width,
-                                  cfg.get("quality", "I")).tobytes())
+            rec = fastq_records(reads, done, id_width,
+                                cfg.get("quality", "I"))
+            out.write(rec.tobytes())
+            plain += rec.size
             parts.append(reads)
             n_rev += int(rev.sum())
             n_sub += subs
             done += reads.shape[0]
-        # on disk before the window: its writeback is set-up's, not a job's
-        f.flush()
-        os.fsync(f.fileno())
+        if out is not raw:
+            out.close()
     codes = np.concatenate(parts) if parts else np.empty((0, 0), np.uint8)
-    return {"codes": codes, "n_reads": count,
+    return {"codes": codes, "genome": genome, "n_reads": count,
             "n_bases": int(codes.size), "n_reverse": n_rev,
-            "n_substitutions": n_sub}
+            "n_substitutions": n_sub, "fastq_bytes": plain}
+
+
+def write_cell_inputs(seed: int, cfg: dict, traffic: dict,
+                      work: str) -> dict:
+    """A cell's input files under `work`, drawn from `seed`: the reads as
+    reads.fastq, or reads.fastq.gz where the traffic gives `gzip_level`;
+    with the configuration's `assembly_bank`, the genome as
+    assembly.fasta, bank 0.  Returns write_inputs' counts with `files`,
+    the -file list in bank order, and `banks`, each bank's codes."""
+    level = traffic.get("gzip_level")
+    reads = os.path.join(
+        work, "reads.fastq" if level is None else "reads.fastq.gz")
+    asm = (os.path.join(work, "assembly.fasta")
+           if cfg.get("assembly_bank") else None)
+    out = write_inputs(seed, cfg, reads, gzip_level=level, assembly=asm)
+    genome = out.pop("genome")
+    out["files"] = [reads] if asm is None else [asm, reads]
+    out["banks"] = ([out["codes"]] if asm is None
+                    else [genome[None, :], out["codes"]])
+    return out

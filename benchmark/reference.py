@@ -8,11 +8,20 @@ valid window.  A window is valid when its k bases are all A, C, G or T
 (either case); any other byte splits a read, as in DSK.  k is at most
 31, so a k-mer's value fits an int64.
 
+Over several banks (DSK's -histo2D input: the assembly as bank 0, then
+the reads) each k-mer has a count in every bank.  The .histo, the
+histogram and the solid k-mers (-solidity-kind sum, the only rule judged)
+read the count summed over all banks, the assembly's too; the .histo2D
+matrix has the reads' summed count in its rows (1..histo_max + 1, the last
+holding every count above histo_max) and the assembly's count, capped at
+10, in its 11 columns.
+
 The control (`fingerprint_fold`) is this reference with its keys held in
 32 bits: each canonical k-mer is replaced by a 32-bit multiplicative hash,
 k-mers that share one merge, and the smallest of them carries the summed
-count.  It is the precision step below the exact 2k-bit key that would
-tempt a change to the table, and it has to fail the comparison.
+count (in every bank).  It is the precision step below the exact 2k-bit
+key that would tempt a change to the table, and it has to fail the
+comparison.
 """
 
 from __future__ import annotations
@@ -103,11 +112,25 @@ def count(codes: np.ndarray, k: int, device="cpu",
     return uniq.cpu().numpy(), cnt.cpu().numpy().astype(np.int64)
 
 
+def count_banks(banks: list[np.ndarray], k: int, device="cpu"
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """(values int64, counts) over several banks' codes: the distinct
+    canonical k-mers of all of them, ascending, with an (n, banks) int64
+    count in each bank."""
+    per = [count(codes, k, device) for codes in banks]
+    values = np.unique(np.concatenate([v for v, _ in per]))
+    counts = np.zeros((values.size, len(banks)), np.int64)
+    for b, (v, c) in enumerate(per):
+        counts[np.searchsorted(values, v), b] = c
+    return values, counts
+
+
 def fingerprint_fold(values: np.ndarray, counts: np.ndarray, device="cpu"
                      ) -> tuple[np.ndarray, np.ndarray]:
     """The control: k-mers keyed by a 32-bit hash of their value; k-mers
-    sharing a key merge into the smallest of them with the summed count.
-    Returns (values, counts) ascending by value."""
+    sharing a key merge into the smallest of them with the summed count
+    (of each bank, where counts is (n, banks)).  Returns (values, counts)
+    ascending by value."""
     v = torch.from_numpy(values).to(device)
     c = torch.from_numpy(counts).to(device)
     key = ((v * _FIB) >> 32) & 0xFFFFFFFF
@@ -115,7 +138,8 @@ def fingerprint_fold(values: np.ndarray, counts: np.ndarray, device="cpu"
     rep = torch.full((keys.numel(),), torch.iinfo(torch.int64).max,
                      dtype=torch.int64, device=device)
     rep = rep.scatter_reduce(0, inv, v, reduce="amin")
-    tot = torch.zeros(keys.numel(), dtype=torch.int64, device=device)
+    tot = torch.zeros((keys.numel(), *c.shape[1:]), dtype=torch.int64,
+                      device=device)
     tot = tot.index_add(0, inv, c)
     order = torch.argsort(rep)
     return rep[order].cpu().numpy(), tot[order].cpu().numpy()
@@ -136,6 +160,23 @@ def histo_text(hist: np.ndarray) -> bytes:
                    for a in range(1, hist.shape[0])).encode()
 
 
+def histo2d(counts: np.ndarray, histo_max: int) -> np.ndarray:
+    """The -histo2D matrix of (n, banks) counts, bank 0 the assembly:
+    (histo_max + 2, 11), [r, a] the k-mers whose reads' summed count is r
+    (every count above histo_max in row histo_max + 1) and whose
+    assembly count is a (every count above 10 in column 10)."""
+    reads = np.minimum(counts[:, 1:].sum(axis=1), histo_max + 1)
+    asm = np.minimum(counts[:, 0], 10)
+    cells = np.bincount(reads * 11 + asm, minlength=(histo_max + 2) * 11)
+    return cells.astype(np.int64).reshape(histo_max + 2, 11)
+
+
+def histo2d_text(matrix: np.ndarray) -> bytes:
+    """DSK's .histo2D file: '<r> <11 counts>' for r = 1..histo_max + 1."""
+    return "".join(f"{r} " + " ".join(str(int(x)) for x in matrix[r]) + "\n"
+                   for r in range(1, matrix.shape[0])).encode()
+
+
 def words_to_values(kmers: np.ndarray) -> np.ndarray:
     """The program's (n, W) uint32 k-mer words, word 0 most significant
     and the value right-aligned, as int64 values."""
@@ -149,14 +190,20 @@ def words_to_values(kmers: np.ndarray) -> np.ndarray:
 def rows_off(va: np.ndarray, ca: np.ndarray, vb: np.ndarray,
              cb: np.ndarray) -> int:
     """How many (k-mer, count) rows lie on one side only: 0 when both
-    tables hold the same k-mers with the same counts."""
-    va, ca = np.asarray(va, np.int64), np.asarray(ca, np.int64)
-    vb, cb = np.asarray(vb, np.int64), np.asarray(cb, np.int64)
-    if va.shape == vb.shape and np.array_equal(va, vb) \
-            and np.array_equal(ca, cb):
+    tables hold the same k-mers with the same counts.  A count is a
+    number, or a row of a count a bank: a row matches only where every
+    bank's count does."""
+    va, vb = np.asarray(va, np.int64), np.asarray(vb, np.int64)
+    ca = np.asarray(ca, np.int64).reshape(va.size, -1) if va.size else \
+        np.zeros((0, 1), np.int64)
+    cb = np.asarray(cb, np.int64).reshape(vb.size, -1) if vb.size else \
+        np.zeros((0, 1), np.int64)
+    if va.shape == vb.shape and ca.shape == cb.shape \
+            and np.array_equal(va, vb) and np.array_equal(ca, cb):
         return 0
     _, ia, ib = np.intersect1d(va, vb, return_indices=True)
-    same = int((ca[ia] == cb[ib]).sum())
+    same = (int((ca[ia] == cb[ib]).all(axis=1).sum())
+            if ca.shape[1] == cb.shape[1] else 0)
     return int(va.size + vb.size - 2 * same)
 
 
@@ -168,39 +215,54 @@ LIMITS = {"jobs_failed": 0, "jobs_off": 0, "table_rows_off": 0,
 def answer(values: np.ndarray, counts: np.ndarray, histo_max: int,
            abundance_min: int, abundance_max: int) -> dict:
     """What a count of (values, counts) has to report: the table, its
-    solid k-mers, the histogram and the .histo file's bytes."""
-    hist = histogram(counts, histo_max)
-    solid = (counts >= abundance_min) & (counts <= abundance_max)
-    return {"values": values, "counts": counts, "histogram": hist,
-            "histo": histo_text(hist), "solid_values": values[solid],
-            "solid_counts": counts[solid]}
+    solid k-mers, the histogram and the .histo file's bytes; where counts
+    is (n, banks), the .histo2D matrix and bytes too, and the rest by the
+    count summed over the banks."""
+    total = counts.sum(axis=1) if counts.ndim == 2 else counts
+    hist = histogram(total, histo_max)
+    solid = (total >= abundance_min) & (total <= abundance_max)
+    out = {"values": values, "counts": counts, "histogram": hist,
+           "histo": histo_text(hist), "solid_values": values[solid],
+           "solid_counts": total[solid]}
+    if counts.ndim == 2:
+        out["histo2d"] = histo2d_text(histo2d(counts, histo_max))
+    return out
 
 
-def reference_answer(codes: np.ndarray, k: int, histo_max: int,
+def reference_answer(banks: list[np.ndarray], k: int, histo_max: int,
                      abundance_min: int, abundance_max: int,
                      device="cpu") -> dict:
-    values, counts = count(codes, k, device)
+    """The answer for the banks' codes: one bank's counts as numbers,
+    several banks' as rows of a count a bank."""
+    if len(banks) == 1:
+        values, counts = count(banks[0], k, device)
+    else:
+        values, counts = count_banks(banks, k, device)
     return answer(values, counts, histo_max, abundance_min, abundance_max)
 
 
 def program_table(result, abundance_min: int, abundance_max: int):
     """(values, counts, solid values, solid counts) of the program's
-    CountResult: its table, and its solid k-mers as its own filter
-    returns them."""
+    CountResult: its table (a count a bank where it counted per bank),
+    and its solid k-mers as its own filter returns them."""
     solid_kmers, solid_counts = result.solid(abundance_min, abundance_max)
-    return (words_to_values(result.kmers), result.counts,
+    counts = (result.counts if result.bank_counts is None
+              else result.bank_counts)
+    return (words_to_values(result.kmers), counts,
             words_to_values(solid_kmers), solid_counts)
 
 
 def judge(ref: dict, jobs: list[dict], tables: list, failed: int) -> dict:
     """The numbers compared, each with its limit.  jobs: every finished
-    job's 'histo' bytes, 'histogram', 'n_solid' and 'n_distinct'; tables:
-    (values, counts, solid values, solid counts) of the judged jobs."""
+    job's 'histo' bytes, 'histogram', 'n_solid' and 'n_distinct', and its
+    'histo2d' bytes where the reference has a .histo2D; tables: (values,
+    counts, solid values, solid counts) of the judged jobs."""
     jobs_off = sum(
         j["histo"] != ref["histo"]
         or not np.array_equal(j["histogram"], ref["histogram"])
         or j["n_solid"] != ref["solid_values"].size
         or j["n_distinct"] != ref["values"].size
+        or ("histo2d" in ref and j.get("histo2d") != ref["histo2d"])
         for j in jobs)
     rows = solid_rows = 0
     for v, c, sv, sc in tables:

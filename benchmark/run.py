@@ -5,12 +5,14 @@
 A cell of BENCHMARK.json names a configuration (a file of sizes under
 benchmark/configs/) and a traffic mix (benchmark/traffic/<name>.json).
 Set-up draws the configuration's reads from the seed and writes them as
-one FASTQ file under TMPDIR, then runs one whole job to build and warm
-every kernel.  The window is a closed loop of one client: jobs run back
-to back, each `dsk_tpu_torch.engine.run.execute` on the FASTQ file with
-the arguments the `dsk` CLI's parser makes of the configuration's and
-the traffic's flags.  Every job that starts within --seconds finishes;
-the window ends with the last one.
+one FASTQ file under TMPDIR (gzip, where the traffic gives a
+`gzip_level`; after the genome as an assembly FASTA, bank 0, where the
+configuration has an `assembly_bank`), then runs one whole job to build
+and warm every kernel.  The window is a closed loop of one client: jobs
+run back to back, each `dsk_tpu_torch.engine.run.execute` on those files
+with the arguments the `dsk` CLI's parser makes of the configuration's
+and the traffic's flags.  Every job that starts within --seconds
+finishes; the window ends with the last one.
 
 End-to-end metrics (--trace 0): the input bases of the window's jobs
 over its length, the device's peak allocated memory in it, and the
@@ -20,9 +22,10 @@ benchmark/metrics/<metric name>.py.
 
 After the window (its memory peak read, the program's state freed) the
 plain reference (benchmark/reference.py) counts the same reads, and
-every job's histogram, .histo bytes, distinct and solid counts, and the
-whole table and solid k-mers of the warm job and of a sample of the
-window's jobs drawn from the seed, are compared with it.  The numbers
+every job's histogram, .histo bytes (and .histo2D bytes), distinct and
+solid counts, and the whole table (a count a bank, over several banks)
+and solid k-mers of the warm job and of a sample of the window's jobs
+drawn from the seed, are compared with it.  The numbers
 compared and their limits are the last lines on standard error and the
 last key of the result, the JSON object on the last line of standard
 output.
@@ -105,17 +108,30 @@ def load_reader(metric: str, root: str = ROOT):
     return mod.read
 
 
-def job_params(config: dict, traffic: dict, fastq: str, out_dir: str,
+def job_argv(config: dict, traffic: dict, files: list[str], out_dir: str,
+             device: str) -> list[str]:
+    """The `dsk` command line of a job on `files`, one bank each."""
+    return [*config["flags"], *traffic["flags"], "-file", ",".join(files),
+            "-out-dir", out_dir, "-out", os.path.join(out_dir, "job"),
+            "-device", device, "-verbose", "0"]
+
+
+def job_params(config: dict, traffic: dict, files: list[str], out_dir: str,
                device: str):
     """RunParams from the `dsk` CLI's parser, field by field as its main()
-    builds them."""
+    builds them.  A cell whose flags ask for a solidity rule other than
+    -solidity-kind sum is refused: the reference judges that one only."""
     from dsk_tpu_torch.cli.dsk import build_parser
     from dsk_tpu_torch.engine.run import RunParams
 
-    argv = [*config["flags"], *traffic["flags"], "-file", fastq,
-            "-out-dir", out_dir, "-out", os.path.join(out_dir, "job"),
-            "-device", device, "-verbose", "0"]
-    args = build_parser().parse_args(argv)
+    args = build_parser().parse_args(
+        job_argv(config, traffic, files, out_dir, device))
+    if args.solidity_kind != "sum" or args.solidity_custom is not None:
+        raise ValueError(
+            "the benchmark's reference judges -solidity-kind sum only; "
+            f"the cell asks for {args.solidity_kind!r}"
+            + (f" with -solidity-custom {args.solidity_custom!r}"
+               if args.solidity_custom is not None else ""))
     kw = {}
     for f in dataclasses.fields(RunParams):
         if f.name == "checkpoint":
@@ -145,28 +161,39 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     cuda = torch.device(device).type == "cuda"
     work = tempfile.mkdtemp(prefix="dskbench-")
     try:
-        fastq = os.path.join(work, "reads.fastq")
         t_gen = time.perf_counter()
-        reads = generate.write_inputs(seed, config, fastq)
+        reads = generate.write_cell_inputs(seed, config, traffic, work)
         t_gen = time.perf_counter() - t_gen
-        codes = reads.pop("codes")
-        fastq_bytes = os.path.getsize(fastq)
-        params = job_params(config, traffic, fastq, work, device)
+        banks = reads.pop("banks")
+        files = reads["files"]
+        file_bytes = sum(os.path.getsize(p) for p in files)
+        params = job_params(config, traffic, files, work, device)
         k = params.kmer_size
-        n_windows = reads["n_reads"] * max(
-            int(config["read_length"]) - k + 1, 0)
+        # every bank a job reads counts, the assembly's too
+        n_bases = sum(int(b.size) for b in banks)
+        n_windows = sum(b.shape[0] * max(b.shape[1] - k + 1, 0)
+                        for b in banks)
+
+        def take(path):
+            if path is None:
+                return None
+            with open(path, "rb") as f:
+                data = f.read()
+            os.remove(path)
+            return data
 
         def one_job():
             out = execute(params)
-            with open(out.histo_path, "rb") as f:
-                histo = f.read()
-            os.remove(out.histo_path)
-            return out, histo
+            return out, take(out.histo_path), take(out.histo2d_path)
 
-        def summary(out, histo, wall):
+        def summary(out, histo, histo2d, wall):
             info = out.info
-            return {"wall_s": wall, "bases": reads["n_bases"],
+            counters = (info.get("trace") or {}).get("counters") or {}
+            return {"wall_s": wall, "bases": n_bases,
+                    "retries": {key: n for key, n in counters.items()
+                                if key.startswith("run.retries.")},
                     "windows": n_windows, "histo": histo,
+                    "histo2d": histo2d,
                     "histogram": np.asarray(out.result.histogram).copy(),
                     "n_solid": int(out.n_solid),
                     "n_distinct": int(info["nb_distinct_kmers"]),
@@ -174,20 +201,31 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
                         "t_stream", "t_sub", "t_gather", "t_hist",
                         "n_bases", "config", "system")}}
 
+        def written(j):
+            return len(j["histo"]) + len(j["histo2d"] or b"")
+
         j0 = time.perf_counter()
-        warm, warm_histo = one_job()
-        warm_job = summary(warm, warm_histo, time.perf_counter() - j0)
+        warm, *warm_files = one_job()
+        warm_job = summary(warm, *warm_files, time.perf_counter() - j0)
         judged = [warm.result]
         del warm
         plan = warm_job["info"]["config"] or {}
-        log(f"set-up: wrote {fastq_bytes} B of FASTQ ({reads['n_reads']} "
-            f"reads, {reads['n_bases']} bases); a job writes "
-            f"{len(warm_histo)} B of .histo; {warm_job['n_distinct']} "
+        level = traffic.get("gzip_level")
+        form = ("" if level is None else f" as {os.path.getsize(files[-1])}"
+                f" B of gzip (level {level})")
+        asm = (f"; the assembly, bank 0: {os.path.getsize(files[0])} B of "
+               f"FASTA ({banks[0].size} bases)" if len(files) > 1 else "")
+        log(f"set-up: wrote {reads['fastq_bytes']} B of FASTQ{form} "
+            f"({reads['n_reads']} reads, {reads['n_bases']} bases){asm}; "
+            f"a job reads {n_bases} bases and writes {written(warm_job)} "
+            f"B of .histo{' and .histo2D' if params.histo2d else ''}; "
+            f"{warm_job['n_distinct']} "
             f"distinct; plan n_passes="
             f"{plan.get('nb_passes')} table_cap={plan.get('table_cap')} "
             f"est_distinct={plan.get('est_distinct_kmers')} buf_batches="
             f"{plan.get('buf_batches')} nb_cores="
-            f"{(warm_job['info']['system'] or {}).get('nb_cores')}; "
+            f"{(warm_job['info']['system'] or {}).get('nb_cores')} "
+            f"retries={warm_job['retries']}; "
             f"reads drawn and written in {t_gen:.3f} s, the warm job "
             f"{warm_job['wall_s']:.3f} s, {j0 - t_start:.3f} s before it")
 
@@ -223,14 +261,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
                 j0 = time.perf_counter()
                 try:
                     with job_span():
-                        out, histo = one_job()
+                        out, *out_files = one_job()
                 except Exception as e:  # a failed job is counted, not fatal
                     t_end = time.perf_counter()
                     errors.append(f"{type(e).__name__}: {e}")
                     jobs.append({"failed": True, "wall_s": t_end - j0})
                     continue
                 t_end = time.perf_counter()
-                jobs.append(summary(out, histo, t_end - j0))
+                jobs.append(summary(out, *out_files, t_end - j0))
                 # a uniform sample of the window's tables, drawn from the
                 # seed
                 if len(keep) < JUDGED_TABLES:
@@ -259,11 +297,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         failed = len(jobs) - len(done)
         bases = sum(j["bases"] for j in done)
         log(f"window: {len(jobs)} jobs ({failed} failed) in {window_s:.3f} "
-            f"s; wrote {fastq_bytes + trace_bytes + sum(len(j['histo']) for j in done) + len(warm_histo)} B "
+            f"s; wrote {file_bytes + trace_bytes + sum(written(j) for j in done) + written(warm_job)} B "
             f"in all")
         log("jobs: wall " + " ".join(f"{j['wall_s']:.3f}" for j in done)
             + " s; stream " + " ".join(f"{j['info']['t_stream']}"
                                      for j in done) + " s")
+        retried = [j["retries"] for j in done if j["retries"]]
+        log(f"jobs that retried: {len(retried)} of {len(done)}"
+            + (f" ({retried[0]} the first)" if retried else ""))
         for e in errors[:3]:
             log(f"job failed: {e}")
 
@@ -296,7 +337,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         # the reference, after the window and its memory peak
         t_ref = time.perf_counter()
         ref = reference.reference_answer(
-            codes, k, params.histo_max, params.abundance_min,
+            banks, k, params.histo_max, params.abundance_min,
             params.abundance_max, device=device)
         tables = [reference.program_table(r, params.abundance_min,
                                           params.abundance_max)

@@ -22,3 +22,27 @@ def tiny_spec(cell: str, **sizes) -> dict:
     spec = run.load_cell(run.load_bench(), cell)
     spec["config"] = dict(spec["config"], **(sizes or TINY))
     return spec
+
+
+def two_bank_spec(**sizes) -> dict:
+    """A made-up cell of DSK's -histo2D form: the tiny genome as the
+    assembly, bank 0, before its reads, with human.table's flags and
+    `-histo2D 1`.  The genome's repeat (30 copies of a 200-bp element,
+    under 2% apart) puts k-mers 10 times and more in the assembly, so the
+    .histo2D's last column is filled."""
+    spec = tiny_spec("human.table", **sizes)
+    cfg = spec["config"]
+    spec["config"] = dict(
+        cfg, name="tiny-histo2d", assembly_bank=True,
+        repeat={"element_length": 200, "share": 0.3,
+                "divergence_max": 0.02},
+        flags=[*cfg["flags"], "-histo2D", "1"])
+    spec["cell"] = dict(spec["cell"], name="tiny.histo2d",
+                        config="tiny-histo2d")
+    return spec
+
+
+def spec_of(cell: str) -> dict:
+    """tiny_spec of a cell of BENCHMARK.json, or the made-up
+    `tiny.histo2d` cell."""
+    return two_bank_spec() if cell == "tiny.histo2d" else tiny_spec(cell)

@@ -1,12 +1,17 @@
 """The read generator: deterministic per seed, and the coverage, error
-rate, strand balance and repeat share that a configuration states."""
+rate, strand balance and repeat share that a configuration states; the
+plain FASTQ of the cells that had it before gzip and several banks, byte
+for byte; the gzip form and the assembly bank."""
 
+import gzip
+import hashlib
 import os
+import zlib
 
 import numpy as np
 import pytest
 
-from bench_tiny import tiny_spec
+from bench_tiny import tiny_spec, two_bank_spec
 
 from benchmark import generate, reference
 
@@ -115,3 +120,109 @@ def test_fastq_round_trips_through_the_reference_reader(tmp_path,
         head = f.read(200).split(b"\n")
     assert head[0] == b"@r000" and head[2] == b"+"
     assert head[3] == b"I" * cfg["read_length"]
+
+
+# sha256 of the tiny cells' FASTQ at seed 2**33 + 5, written by the
+# generator before it had the gzip and assembly forms
+PLAIN_FASTQ_SHA256 = {
+    "ecoli.table":
+        "691b64fe4e1c79848d7fa95661193525f455e8a4b9f1b875acdd25ba11a3fe37",
+    "human.table":
+        "c153eb0a9984ea0f5acbd919f1c748fccc92b229a898de6433420beb5354aff0",
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PLAIN_FASTQ_SHA256))
+def test_plain_fastq_bytes_are_as_before(tmp_path, cell):
+    spec = tiny_spec(cell)
+    out = generate.write_cell_inputs(2**33 + 5, spec["config"],
+                                     spec["traffic"], str(tmp_path))
+    assert [os.path.basename(p) for p in out["files"]] == ["reads.fastq"]
+    with open(out["files"][0], "rb") as f:
+        data = f.read()
+    assert hashlib.sha256(data).hexdigest() == PLAIN_FASTQ_SHA256[cell]
+    assert out["fastq_bytes"] == len(data)
+    assert len(out["banks"]) == 1 and out["banks"][0] is out["codes"]
+
+
+def test_gzip_form_is_one_member_of_the_same_reads(tmp_path):
+    spec = tiny_spec("ecoli.table.gz", genome_length=20000, read_count=5000)
+    assert spec["traffic"]["gzip_level"] == 6
+    got = []
+    for name in ("a", "b"):
+        os.makedirs(tmp_path / name)
+        got.append(generate.write_cell_inputs(
+            2**33 + 5, spec["config"], spec["traffic"], str(tmp_path / name)))
+    paths = [g["files"][0] for g in got]
+    assert [os.path.basename(p) for p in paths] == ["reads.fastq.gz"] * 2
+    raw = [open(p, "rb").read() for p in paths]
+    # the bytes depend on the seed alone: no time, a fixed name
+    assert raw[0] == raw[1]
+    assert raw[0][:4] == b"\x1f\x8b\x08\x08" and raw[0][4:8] == bytes(4)
+    assert raw[0][10:22] == b"reads.fastq\x00"
+    # one member, at level 6: nothing follows the first member's end
+    d = zlib.decompressobj(wbits=31)
+    plain = d.decompress(raw[0])
+    assert d.eof and d.unused_data == b""
+    # the reads of ecoli.table at the same sizes, byte for byte
+    sizes = {"genome_length": 20000, "read_count": 5000}
+    os.makedirs(tmp_path / "plain")
+    fq = generate.write_cell_inputs(
+        2**33 + 5, tiny_spec("ecoli.table", **sizes)["config"],
+        tiny_spec("ecoli.table")["traffic"], str(tmp_path / "plain"))
+    assert open(fq["files"][0], "rb").read() == plain
+    assert got[0]["fastq_bytes"] == len(plain) > len(raw[0])
+    assert gzip.decompress(raw[0]) == plain
+    # pigz's stream at level 6 between the header and the trailer: the
+    # blocks deflated one after another, each primed with the 32 KiB
+    # before it, come out as the pool wrote them
+    B, W = generate.GZIP_BLOCK, generate.GZIP_WINDOW
+    assert len(plain) > 2 * B
+    starts = range(0, len(plain), B)
+    body = b"".join(generate.deflate_block(
+        plain[lo:lo + B], plain[max(lo - W, 0):lo], 6, lo + B >= len(plain))
+        for lo in starts)
+    assert raw[0][22:-8] == body
+    assert zlib.decompressobj(-zlib.MAX_WBITS).decompress(
+        generate.deflate_block(plain[:B], b"", 6, True)) == plain[:B]
+
+
+def test_the_assembly_bank_draws_nothing(tmp_path):
+    spec = two_bank_spec()
+    cfg = spec["config"]
+    plain = dict(cfg)
+    del plain["assembly_bank"]
+    (tmp_path / "one").mkdir()
+    (tmp_path / "two").mkdir()
+    one = generate.write_cell_inputs(7, plain, spec["traffic"],
+                                     str(tmp_path / "one"))
+    two = generate.write_cell_inputs(7, cfg, spec["traffic"],
+                                     str(tmp_path / "two"))
+    assert [os.path.basename(p) for p in two["files"]] == [
+        "assembly.fasta", "reads.fastq"]
+    # the reads of a seed are the same with the assembly written first
+    assert open(one["files"][0], "rb").read() == \
+        open(two["files"][1], "rb").read()
+    assert np.array_equal(two["banks"][1], one["banks"][0])
+    # the assembly is the genome the reads were drawn from, one record
+    genome = two["banks"][0]
+    assert genome.shape == (1, cfg["genome_length"])
+    rng = np.random.default_rng(7)
+    assert np.array_equal(genome[0], generate.make_genome(rng, cfg))
+    with open(two["files"][0], "rb") as f:
+        lines = f.read().split(b"\n")
+    assert lines[0] == b">assembly" and lines[-1] == b""
+    assert {len(ln) for ln in lines[1:-2]} == {80}
+    assert 0 < len(lines[-2]) <= 80
+    seqs = reference.read_sequences(two["files"][0])
+    assert np.array_equal(reference.encode(seqs), genome)
+
+
+@pytest.mark.parametrize("n", [1, 79, 80, 81, 160])
+def test_fasta_record_wraps_at_the_line_width(n):
+    codes = np.arange(n, dtype=np.uint8) % 4
+    rec = generate.fasta_record(codes, "g", 80)
+    lines = rec.split(b"\n")
+    assert lines[0] == b">g" and lines[-1] == b""
+    assert b"".join(lines[1:]) == generate.LETTERS[codes].tobytes()
+    assert all(0 < len(ln) <= 80 for ln in lines[1:-1])

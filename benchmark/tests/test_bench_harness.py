@@ -1,8 +1,10 @@
 """The harness: BENCHMARK.json within the contract's limits, every
 configuration, cell and per-layer metric found by name from files of its
-own, whole CPU runs of both cells at a tiny size, and no module of JAX or
-of the JAX package in a run's process."""
+own, whole CPU runs of every cell and of a made-up two-bank -histo2D cell
+at a tiny size, the cells that came before gzip and several banks run as
+they ran, and no module of JAX or of the JAX package in a run's process."""
 
+import hashlib
 import json
 import os
 import re
@@ -13,9 +15,9 @@ import time
 
 import pytest
 
-from bench_tiny import ROOT, tiny_spec
+from bench_tiny import ROOT, spec_of, tiny_spec, two_bank_spec
 
-from benchmark import run
+from benchmark import generate, reference, run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -107,9 +109,10 @@ def test_a_new_cell_and_metric_need_only_new_files(tmp_path, bench):
         run.load_bench(str(root)), "ecoli.table", str(root))["per_layer"]}
 
 
-@pytest.mark.parametrize("cell", ["ecoli.table", "human.table"])
+@pytest.mark.parametrize("cell", ["ecoli.table", "human.table",
+                                  "ecoli.table.gz", "tiny.histo2d"])
 def test_tiny_cpu_run_is_correct(cell):
-    res = run.run_cell(tiny_spec(cell), 2**35 + 1, 0.5, False,
+    res = run.run_cell(spec_of(cell), 2**35 + 1, 0.5, False,
                        device="cpu", t_start=time.perf_counter())
     assert res["correct"] is True and res["failed"] == 0
     assert res["attempted"] >= 1
@@ -117,6 +120,66 @@ def test_tiny_cpu_run_is_correct(cell):
                                    "setup_s"}
     assert list(res)[-1] == "checks"
     assert all(c["value"] == 0 for c in res["checks"].values())
+
+
+# what the harness ran for these cells before gzip and several banks:
+# the command line of a job, and a sha256 of the reference's answer to the
+# tiny cell at seed 2**33 + 5 (values, counts, histogram, solid values and
+# counts as little-endian int64, then the .histo bytes)
+BEFORE = {
+    "ecoli.table": (
+        ["-kmer-size", "21", "-abundance-min", "2", "-max-memory", "20000",
+         "-nb-cores", "4"],
+        "0e867e2cc100ba82acfdc470df0f4a439a254a85dafafa9fc04d776791e1c458"),
+    "human.table": (
+        ["-kmer-size", "27", "-abundance-min", "3", "-max-memory", "20000",
+         "-nb-cores", "4"],
+        "b8b15a62f1e79054fc8e281c0b7c96f0008ef5d4d44752d4c42422d13ca54def"),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(BEFORE))
+def test_the_first_cells_run_and_are_judged_as_before(tmp_path, cell):
+    flags, answer_sha = BEFORE[cell]
+    spec = tiny_spec(cell)
+    out = generate.write_cell_inputs(2**33 + 5, spec["config"],
+                                     spec["traffic"], str(tmp_path))
+    fastq = str(tmp_path / "reads.fastq")
+    assert out["files"] == [fastq]
+    argv = run.job_argv(spec["config"], spec["traffic"], out["files"],
+                        "/w", "cuda")
+    assert argv == [*flags, "-spill", "off", "-storage-type", "none",
+                    "-histo", "1", "-file", fastq, "-out-dir", "/w",
+                    "-out", "/w/job", "-device", "cuda", "-verbose", "0"]
+    params = run.job_params(spec["config"], spec["traffic"], out["files"],
+                            "/w", "cuda")
+    assert (params.file, params.histo, params.histo2d,
+            params.solidity_kind) == (fastq, True, False, "sum")
+    ref = reference.reference_answer(
+        out["banks"], params.kmer_size, params.histo_max,
+        params.abundance_min, params.abundance_max)
+    h = hashlib.sha256()
+    for key in ("values", "counts", "histogram", "solid_values",
+                "solid_counts"):
+        h.update(ref[key].astype("<i8").tobytes())
+    h.update(ref["histo"])
+    assert h.hexdigest() == answer_sha
+    assert "histo2d" not in ref
+    assert reference.LIMITS == {"jobs_failed": 0, "jobs_off": 0,
+                                "table_rows_off": 0, "solid_rows_off": 0}
+
+
+@pytest.mark.parametrize("flags", [["-solidity-kind", "min"],
+                                   ["-solidity-custom", "1,0"]])
+def test_a_solidity_rule_other_than_sum_is_refused(flags):
+    spec = two_bank_spec()
+    config = dict(spec["config"], flags=[*spec["config"]["flags"], *flags])
+    with pytest.raises(ValueError, match="solidity-kind sum"):
+        run.job_params(config, spec["traffic"], ["a.fa", "r.fq"], "/w",
+                       "cpu")
+    with pytest.raises(ValueError, match="solidity-kind sum"):
+        run.run_cell(dict(spec, config=config), 1, 0.1, False,
+                     device="cpu", t_start=time.perf_counter())
 
 
 def test_tiny_cpu_traced_run_reads_the_host_metrics():
@@ -189,7 +252,7 @@ def _card():
 def test_cells_on_the_card_are_correct():
     if not _card():
         pytest.skip("needs a CUDA device")
-    for cell in ("ecoli.table", "human.table"):
+    for cell in ("ecoli.table", "human.table", "ecoli.table.gz"):
         r = subprocess.run([sys.executable, "benchmark/run.py", "--workload",
                             cell, "--seed", "2", "--seconds", "1"],
                            cwd=ROOT, capture_output=True, text=True,
@@ -198,6 +261,18 @@ def test_cells_on_the_card_are_correct():
         res = json.loads(r.stdout.strip().splitlines()[-1])
         assert res["correct"] is True
         assert res["device"]["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+def test_two_bank_histo2d_run_on_the_card_is_correct():
+    # no cell of BENCHMARK.json has two banks yet: this drives the bank
+    # plane, the per-bank fold and the .histo2D writer through the harness
+    if not _card():
+        pytest.skip("needs a CUDA device")
+    res = run.run_cell(two_bank_spec(), 2**35 + 7, 1.0, False,
+                       device="cuda", t_start=time.perf_counter())
+    assert res["correct"] is True and res["failed"] == 0
+    assert res["device"]["platform"] == "gpu"
 
 
 def test_trace_reduction_union_layers_and_idle_spans(tmp_path):
