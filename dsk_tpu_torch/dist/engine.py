@@ -43,7 +43,9 @@ several banks) carries the sub-bank id as an extra, least significant key
 word, WK = W + 1, as the reference does: the feeder ships each group's
 row bank ids beside the wire, the fused kernel writes them as plane W,
 the table holds (k-mer, bank) pairs, and the host groups them per k-mer
-(engine/counter.py `_group_by_kmer`) into totals and a per-bank matrix.
+(engine/counter.py `_group_by_kmer`) into totals and a per-bank matrix
+(the span gather.group, with the table's histogram of the totals where
+the gather takes it; the counters bank.pairs and bank.kmers).
 
 Spill mode (spill_partitions > 0; DSK's fill/count loop, dist/spill.py)
 keeps device memory at one buffer and one table whatever the distinct
@@ -1193,7 +1195,8 @@ class DistCountEngine:
             if on_pass is not None:
                 on_pass(p, res)
             results.append(res)
-        return merge_pass_results(results)
+        with spans.span("count.merge"):
+            return merge_pass_results(results)
 
     def _emit_pass(self, pass_sink, pass_id: int) -> list[int]:
         """Stream this pass's table to the sink, then drop it."""
@@ -1227,8 +1230,9 @@ class DistCountEngine:
         sizes = []
         sink.hist = np.zeros(self.nb_bins + 1, np.int64)
         for p, rows, cc in self._partitions_at_root():
-            kk, tot, bmat = _group_by_kmer(rows, cc, self.W, sink.nb_banks)
-            sink.hist += processors.histogram(tot, self.nb_bins)
+            with spans.span("gather.group"):
+                kk, tot, bmat = _group_banks(rows, cc, self.W, sink.nb_banks)
+                sink.hist += processors.histogram(tot, self.nb_bins)
             sink.fn(pass_id, p, kk, tot, bmat)
             sizes.append(int(kk.shape[0]))
         self._last_state = None
@@ -1269,7 +1273,8 @@ class DistCountEngine:
         key-space buckets, where a k-mer's banks share its bucket: a
         k-mer's rows are adjacent."""
         rows, counts = self._live_rows(tab_p, tab_c)
-        kk, cc, bb = _group_by_kmer(rows, counts, self.W, nb_banks)
+        with spans.span("gather.group"):
+            kk, cc, bb = _group_banks(rows, counts, self.W, nb_banks)
         return kk, cc, bb, [int(kk.shape[0])]
 
     def count_stream(
@@ -1584,9 +1589,10 @@ class DistCountEngine:
             kmers, counts, bank_mat, sizes = self.gather_tables_per_bank(
                 tab_p, tab_c, nb_banks
             )
+            with spans.span("gather.group"):
+                hist = processors.histogram(counts, self.nb_bins)
         info["t_gather"] = round(sp.ns / 1e9, 3)
         info["partition_sizes"] = sizes
-        hist = processors.histogram(counts, self.nb_bins)
         if self.ranks is not None:
             hist = self.ranks.host_sum(hist)
         return CountResult(
@@ -1848,7 +1854,8 @@ class DistCountEngine:
         only) and the histogram increment over per-k-mer totals."""
         bmat = None
         if self.per_bank:
-            kk, cc, bmat = _group_by_kmer(kk, cc, self.W, nb_banks)
+            with spans.span("gather.group"):
+                kk, cc, bmat = _group_banks(kk, cc, self.W, nb_banks)
         hist_inc = (
             np.bincount(
                 np.clip(cc, 1, self.nb_bins), minlength=self.nb_bins + 1
@@ -2429,7 +2436,8 @@ class DistCountEngine:
                 if on_pass is not None:
                     on_pass(p, res)
                 results.append(res)
-            return merge_pass_results(results)
+            with spans.span("count.merge"):
+                return merge_pass_results(results)
 
         try:
             return run_passes()
@@ -2485,6 +2493,17 @@ def _delete_spill(spill) -> None:
         spill.delete()
     except FileNotFoundError:
         pass
+
+
+def _group_banks(rows: np.ndarray, counts: np.ndarray, W: int,
+                 nb_banks: int):
+    """`_group_by_kmer` of a table's live (k-mer, bank) rows, counted in
+    the run: bank.pairs the rows it takes, bank.kmers the distinct k-mers
+    it gives."""
+    spans.count("bank.pairs", int(rows.shape[0]))
+    kk, tot, bmat = _group_by_kmer(rows, counts, W, nb_banks)
+    spans.count("bank.kmers", int(kk.shape[0]))
+    return kk, tot, bmat
 
 
 def _device_name(device: torch.device) -> str:

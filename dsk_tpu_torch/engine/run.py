@@ -332,6 +332,8 @@ def _execute(params: RunParams, ranks, world: int, root: bool, device,
         or params.solidity_kind != "sum"
         or params.solidity_custom is not None
     )
+    if need_per_bank:
+        spans.count("bank.nb_banks", bank.nb_banks)
 
     # minimizer/superkmer routing (-minimizer-type 1 / -repartition-type
     # 1): across ranks the engine routes packed superkmer records by a
@@ -574,9 +576,10 @@ def _execute(params: RunParams, ranks, world: int, root: bool, device,
                     store.append_solid_partition(pid, kk[m], cc[m])
                     n_solid_stream += int(m.sum())
                     if params.histo2d and bmat.shape[0]:
-                        histo2d_mat[:] += processors.histo2d_matrix(
-                            bmat, params.histo_max
-                        )
+                        with spans.span("finish.histo2d"):
+                            histo2d_mat[:] += processors.histo2d_matrix(
+                                bmat, params.histo_max
+                            )
             else:
 
                 def pass_sink(pass_id, pid, kk, cc):
@@ -815,22 +818,24 @@ def _execute(params: RunParams, ranks, world: int, root: bool, device,
 
     histo2d_path = None
     if params.histo2d:
-        if stream_out and need_per_bank:
-            mat = histo2d_mat  # accumulated by the per-bank sink
-        elif result.bank_counts is None:
-            raise ValueError(
-                "-histo2D needs >= 2 input banks (assembly first, then reads)"
-            )
-        else:
-            mat = processors.histo2d_matrix(
-                result.bank_counts, params.histo_max
-            )
-            if ranks is not None:
-                mat = ranks.host_sum(mat)  # additive over k-mers
-        histo2d_path = prefix + ".histo2D"
-        if root:
-            with spans.span("finish.histo"), open(histo2d_path, "w") as f:
-                store_text.write_histo2d(mat, f)
+        with spans.span("finish.histo2d"):
+            if stream_out and need_per_bank:
+                mat = histo2d_mat  # accumulated by the per-bank sink
+            elif result.bank_counts is None:
+                raise ValueError(
+                    "-histo2D needs >= 2 input banks (assembly first, then "
+                    "reads)"
+                )
+            else:
+                mat = processors.histo2d_matrix(
+                    result.bank_counts, params.histo_max
+                )
+                if ranks is not None:
+                    mat = ranks.host_sum(mat)  # additive over k-mers
+            histo2d_path = prefix + ".histo2D"
+            if root:
+                with open(histo2d_path, "w") as f:
+                    store_text.write_histo2d(mat, f)
         progress.log(f"[dsk_tpu_torch] histo2D matrix -> {histo2d_path}")
 
     if h5_path is not None:
