@@ -111,7 +111,8 @@ Where the time goes is recorded as spans and counters of utils/spans.py
 (the caller's run, or a stream's own): stream.* on the calling thread,
 feed.* on the prefetch thread, flush.<piece> for each flush piece (with
 flush_log set, the same pieces' device time from CUDA events), hist and
-gather, spill.* in spill mode.  The info keys t_stream, t_sub, t_hist,
+gather, count.merge (a multi-pass count's tables merged on the host),
+spill.* in spill mode.  The info keys t_stream, t_sub, t_hist,
 t_gather, t_count_phase and t_count_sub are their totals.
 """
 
@@ -129,11 +130,7 @@ from dsk_tpu_torch.io.bank import Bank, open_bank
 from dsk_tpu_torch.io.batch import batch_iterator
 from dsk_tpu_torch.kmer import codec
 from dsk_tpu_torch.utils import spans
-from dsk_tpu_torch.engine.counter import (
-    CountResult,
-    _group_by_kmer,
-    merge_pass_results,
-)
+from dsk_tpu_torch.engine.counter import CountResult, _group_by_kmer
 from dsk_tpu_torch.io.packed import (
     EXC_E,
     WireOverflow,
@@ -1196,7 +1193,7 @@ class DistCountEngine:
                 on_pass(p, res)
             results.append(res)
         with spans.span("count.merge"):
-            return merge_pass_results(results)
+            return merge_pass_tables(results)
 
     def _emit_pass(self, pass_sink, pass_id: int) -> list[int]:
         """Stream this pass's table to the sink, then drop it."""
@@ -2437,7 +2434,7 @@ class DistCountEngine:
                     on_pass(p, res)
                 results.append(res)
             with spans.span("count.merge"):
-                return merge_pass_results(results)
+                return merge_pass_tables(results)
 
         try:
             return run_passes()
@@ -2504,6 +2501,55 @@ def _group_banks(rows: np.ndarray, counts: np.ndarray, W: int,
     kk, tot, bmat = _group_by_kmer(rows, counts, W, nb_banks)
     spans.count("bank.kmers", int(kk.shape[0]))
     return kk, tot, bmat
+
+
+def merge_pass_tables(results: list[CountResult]) -> CountResult:
+    """Merge per-pass tables (disjoint k-mer sets) into one sorted result:
+    engine/counter.py `merge_pass_results`'s output, row order and info.
+
+    Where a k-mer fits in 64 bits (W <= 2), its words packed into one
+    uint64, word 0 highest, order as the reference's lexicographic sort
+    does, and one stable argsort of the packed keys merges the passes'
+    sorted runs (timsort) instead of re-sorting all rows; rows out of
+    order (a spilled pass's, partition after partition) still come out
+    sorted.  Wider k-mers take the reference's `np.lexsort`.  Counted in
+    the run: count.merge_packed or count.merge_lexsort once a merge, and
+    count.merge_rows the rows merged."""
+    first = results[0]
+    kmers = np.concatenate([r.kmers for r in results], axis=0)
+    counts = np.concatenate([r.counts for r in results], axis=0)
+    bank_counts = None
+    if first.bank_counts is not None:
+        bank_counts = np.concatenate([r.bank_counts for r in results],
+                                     axis=0)
+    W = kmers.shape[1]
+    if W <= 2:
+        key = kmers[:, 0].astype(np.uint64)
+        if W == 2:
+            key = (key << np.uint64(32)) | kmers[:, 1]
+        # the keys are distinct, so this is the lexicographic order
+        order = np.argsort(key, kind="stable")
+        spans.count("count.merge_packed")
+    else:
+        order = np.lexsort(tuple(kmers[:, w] for w in range(W - 1, -1, -1)))
+        spans.count("count.merge_lexsort")
+    spans.count("count.merge_rows", int(kmers.shape[0]))
+    kmers = np.take(kmers, order, axis=0)
+    counts = np.take(counts, order, axis=0)
+    if bank_counts is not None:
+        bank_counts = np.take(bank_counts, order, axis=0)
+    hist = np.sum([r.histogram for r in results], axis=0)
+    info = dict(first.info)
+    # the merge re-sorts globally, so per-pass partition boundaries are gone
+    info.pop("partition_sizes", None)
+    info["n_bases"] = first.info.get("n_bases", 0)
+    info["n_passes"] = len(results)
+    # resume evidence is per pass: OR it, so that a resume in any pass shows
+    for flag in ("spill_resumed", "fill_resumed"):
+        if any(r.info.get(flag) for r in results):
+            info[flag] = True
+    return CountResult(k=first.k, kmers=kmers, counts=counts,
+                       histogram=hist, bank_counts=bank_counts, info=info)
 
 
 def _device_name(device: torch.device) -> str:

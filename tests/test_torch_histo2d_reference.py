@@ -16,7 +16,8 @@ The per-bank path's spans and counters are checked in the same runs:
 bank.pairs (the table's (k-mer, bank) rows), bank.kmers (the distinct
 k-mers) and bank.nb_banks; a one-bank run records none of them.  The
 two-pass run also holds `count.merge`, the host merge of the passes'
-tables.
+tables, and its counters: count.merge_packed once (k = 27 packs into 64
+bits) and count.merge_rows the merged table's rows.
 """
 
 import dataclasses
@@ -127,8 +128,16 @@ def test_per_bank_spans_and_counters(runs, n_passes):
     parents = {parent for name, *_, parent, _tid, _depth
                in record["intervals"] if name == "gather.group"}
     assert parents == {"gather"}
-    # the passes' tables merged on the host: a span of its own
+    # the passes' tables merged on the host: a span of its own, and at
+    # k = 27 by the packed key, once, over every distinct k-mer
     assert ("count.merge" in trace["spans"]) == (n_passes > 1)
+    assert "count.merge_lexsort" not in counters
+    if n_passes > 1:
+        assert counters["count.merge_packed"] == 1
+        assert counters["count.merge_rows"] == out.result.n_distinct
+    else:
+        assert "count.merge_packed" not in counters
+        assert "count.merge_rows" not in counters
 
 
 def test_one_bank_run_records_no_bank_spans(drawn):
